@@ -1,0 +1,157 @@
+"""Command line of the PyTorch port, the same config surface as main.py: per
+scene — convert nuScenes -> clip when needed, extract CAMA labels from the
+release zip, and write the cama + nuScenes overlay videos.
+
+    python -m cama_tpu_torch.cli --config config.yaml [--device cuda|cpu]
+
+The device comes from --device, else cama_configs.device, else 'cuda'.
+Scenes are written one after another.  Not supported yet, and reported as
+failures: the `sites:` aggregation block, and scenes that still need the
+nuScenes -> clip conversion (convert them once with main.py; the JAX
+package's converter imports jax).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+import zipfile
+
+from cama_tpu_torch.config import load_config
+from cama_tpu_torch.io.scene import DEFAULT_CAMA_CONFIGS
+from cama_tpu_torch.pipeline import ClipPipeline
+
+
+def _extract_all_labels(zip_filepath, scene_names, dest_dir):
+    """Extract every configured scene's label files in ONE pass over the
+    release zip."""
+    prefixes = tuple(f"{name}/" for name in scene_names)
+    with zipfile.ZipFile(zip_filepath, "r") as zf:
+        for member in zf.namelist():
+            if member.startswith(prefixes):
+                zf.extract(member, dest_dir)
+                if member.endswith("/"):
+                    os.makedirs(os.path.join(dest_dir, member), exist_ok=True)
+
+
+def _isolated(label, failures, fn, *args, **kwargs):
+    """Run one scene in isolation: an exception prints its traceback and
+    records (label, repr(e)) in `failures`; the batch keeps going and the
+    exit code reports it."""
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:
+        import traceback
+
+        traceback.print_exc()
+        failures.append((label, repr(e)))
+        return None
+
+
+def run(configs, device="cuda"):
+    t_run0 = time.perf_counter()
+    output_dir = configs["converted_dataroot"]
+    os.makedirs(output_dir, exist_ok=True)
+    output_video_dir = configs["output_video_dir"]
+    os.makedirs(output_video_dir, exist_ok=True)
+    # order-preserving dedupe: a scene listed twice is written once
+    scene_names = list(dict.fromkeys(configs["scene_names"]))
+
+    def first_frame_cb(label):
+        def cb():
+            print(f"[{label}] first video frame at "
+                  f"{time.perf_counter() - t_run0:.1f}s", flush=True)
+        return cb
+
+    # CAMA label files into the clip dirs: one zip pass, only for scenes
+    # whose labels are not already on disk
+    zip_file = configs.get("cama_label_file")
+    if zip_file:
+        if os.path.exists(zip_file):
+            cc = {**DEFAULT_CAMA_CONFIGS, **(configs.get("cama_configs") or {})}
+            need = [n for n in scene_names if not os.path.exists(os.path.join(
+                output_dir, n, cc["result_dir"], cc["cama_map_file"]))]
+            if need:
+                _extract_all_labels(zip_file, need, output_dir)
+        else:
+            print(f"warning: cama_label_file not found: {zip_file} — "
+                  "scenes without already-extracted labels will skip their "
+                  "cama video", flush=True)
+
+    failures = []
+    for scene_name in scene_names:
+        item = _isolated(scene_name, failures, _prepare_scene, configs,
+                         scene_name, output_dir, output_video_dir, device)
+        if item is not None and item[2]:
+            _isolated(scene_name, failures, _write_scene_videos, configs,
+                      *item, first_frame_cb(scene_name))
+    if configs.get("sites"):
+        failures.append(("sites", "site aggregation is not supported by "
+                                  "cama_tpu_torch yet"))
+    if failures:
+        print(f"{len(failures)} scene(s) failed: {failures}")
+    return failures
+
+
+def _prepare_scene(configs, scene_name, output_dir, output_video_dir,
+                   device="cuda"):
+    """Compile the scene pipeline for one converted scene.
+    Returns (scene_name, pipeline, {source: video_path})."""
+    clip_path = os.path.join(output_dir, scene_name)
+    if not os.path.exists(os.path.join(clip_path, "attribute.json")):
+        raise FileNotFoundError(
+            f"{clip_path} is not a converted clip (no attribute.json); "
+            "convert the scene with main.py first")
+    # every raster_kernel of the JAX package renders the same videos; this
+    # package serves them all with its fused kernel
+    pipe = ClipPipeline(configs.get("cama_configs"), clip_path, device=device)
+    if pipe.scene.from_cache:
+        print(f"[{scene_name}] scene cache hit — lifting skipped")
+    paths = {}
+    for source, suffix in (("cama", "cama"), ("nuscenes", "nuScenes")):
+        if source not in pipe.scene.flat:
+            print(f"[{scene_name}] no {source} labels; skipping video")
+            continue
+        paths[source] = os.path.join(output_video_dir, f"{scene_name}_{suffix}.mp4")
+    return scene_name, pipe, paths
+
+
+def _write_scene_videos(configs, scene_name, pipe, paths, on_first_frame=None):
+    """One pass over the clip writes every source's video."""
+    print(f"[{scene_name}] generating reprojection videos "
+          f"({', '.join(paths)} labels) on {pipe.device}...")
+    t0 = time.perf_counter()
+    counts = pipe.write_videos(paths, preset=configs.get("video_preset"),
+                               on_first_frame=on_first_frame)
+    dt = time.perf_counter() - t0
+    for source, out in paths.items():
+        print(f"  {counts[source]} frames -> {out}")
+    total = sum(counts.values())
+    print(f"  {total} video-frames in {dt:.1f}s ({total / max(dt, 1e-9):.1f} fps)")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Write CAMA overlay videos with the PyTorch/CUDA port.")
+    parser.add_argument(
+        "-c", "--config", type=str, default="config.yaml",
+        help="Path to the configuration file.",
+    )
+    parser.add_argument(
+        "--device", type=str, default=None,
+        help="torch device: 'cuda' (default) or 'cpu' (plain PyTorch "
+             "versions of the kernels); overrides cama_configs.device.",
+    )
+    args = parser.parse_args(argv)
+    configs, cfg_device = load_config(args.config)
+    failures = run(configs, device=args.device or cfg_device or "cuda")
+    return 1 if failures else 0
+
+
+def main_entry(argv=None):
+    """Console-script / python -m entrypoint."""
+    raise SystemExit(main(argv))
+
+
+if __name__ == "__main__":
+    main_entry()

@@ -1,0 +1,215 @@
+"""Fused project + dedup + compact: the overlay front end for a batch of
+frames.
+
+Counterpart of cama_tpu/ops/fused_compact.py.  For every frame of a chunk it
+projects the scene's points into all cameras, applies the crop box and the
+image bounds, drops a point whose original-order successor is kept on the
+same pixel, and stably compacts the points kept by any camera into a union
+list: vals[f, r, c] = enc + 1 for camera c (0 = not kept by c), with
+enc = pix * MAX_CLS + cls, in original point order (row = paint priority);
+count[f] is the true number of rows, also when it exceeds k_cap.
+
+`fused_compact_project` launches the hand-written CUDA kernel
+(csrc/fused_compact.cu) for CUDA tensors, and uses the plain PyTorch version
+`fused_compact_project_ref` only for CPU tensors.  Both evaluate the
+projection elementwise in the same order, ((m0*x + m1*y) + m2*z) + m3 with
+IEEE division, so they agree exactly on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from cama_tpu_torch.ops.raster import MAX_CLS, rasterize_from_compact
+
+MAX_CAM = 8  # cameras per frame the kernel holds in registers
+
+# launches of each CUDA entry point, counted by its wrapper (plain-version
+# calls on CPU tensors do not count)
+LAUNCHES = {"fused_compact_project": 0, "count_union": 0}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _row(m, x, y, z):
+    """((m0*x + m1*y) + m2*z) + m3 over the last axis of m [..., 4], broadcast
+    against the point coordinates [P]."""
+    return ((m[..., 0, None] * x + m[..., 1, None] * y)
+            + m[..., 2, None] * z) + m[..., 3, None]
+
+
+def _pixels(points, ok, A, B, width, height, crop_lo, crop_hi):
+    """Pixel codes [C, P] int32 of one frame (-1 = not kept)."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    for r in range(3):
+        cr = _row(A[r], x, y, z)
+        ok = ok & (cr >= float(crop_lo[r])) & (cr <= float(crop_hi[r]))
+    px = _row(B[:, 0], x, y, z)                 # [C, P]
+    py = _row(B[:, 1], x, y, z)
+    pz = _row(B[:, 2], x, y, z)
+    mask_z = pz > 0
+    safe_z = torch.where(mask_z, pz, torch.ones_like(pz))
+    u = px / safe_z
+    v = py / safe_z
+    keep = (mask_z & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+            & ok[None, :])
+    pix = v.to(torch.int32) * width + u.to(torch.int32)
+    return torch.where(keep, pix, -1)
+
+
+def _effective(points, valid, cls, A, B, fv, width, height, crop_lo, crop_hi):
+    """Per-camera payload [C, P] int32 (enc + 1, or 0) and the union mask
+    [P] of one frame."""
+    pix = _pixels(points, valid & fv, A, B, width, height, crop_lo, crop_hi)
+    succ = torch.cat([pix[:, 1:], torch.full_like(pix[:, :1], -1)], dim=1)
+    eff = (pix >= 0) & (succ != pix)
+    val = torch.where(eff, pix * MAX_CLS + cls[None, :] + 1, 0)
+    return val, eff.any(dim=0)
+
+
+def _check(points, valid, cls, A, B, frame_valid):
+    P = points.shape[0]
+    F, C = B.shape[0], B.shape[1]
+    if not 1 <= C <= MAX_CAM:
+        raise ValueError(f"fused kernel supports 1..{MAX_CAM} cameras, got {C}")
+    if P < 1:
+        raise ValueError("fused kernel needs at least one point")
+    expect = {"points": (points, (P, 3), torch.float32),
+              "valid": (valid, (P,), torch.bool),
+              "cls": (cls, (P,), torch.int32),
+              "A": (A, (F, 4, 4), torch.float32),
+              "B": (B, (F, C, 3, 4), torch.float32),
+              "frame_valid": (frame_valid, (F,), torch.bool)}
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != points.device:
+            raise ValueError(f"{name} is on {t.device}, points on {points.device}")
+    return P, F, C
+
+
+def fused_compact_project_ref(points, valid, cls, A, B, frame_valid, width,
+                              height, crop_lo, crop_hi, k_cap):
+    """Plain PyTorch version of the fused kernel (any device).
+
+    Args:
+        points [P, 3] f32, valid [P] bool, cls [P] int32 (< MAX_CLS)
+        A [F, 4, 4] f32 world -> chassis, B [F, C, 3, 4] f32 world -> pixel
+        frame_valid [F] bool
+        width/height: output image size; crop_lo/crop_hi: [3] chassis box
+        k_cap: rows of the union list
+    Returns:
+        vals [F, k_cap, C] int32 (rows >= count are 0), count [F] int32.
+    """
+    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    vals = torch.zeros((F, k_cap, C), dtype=torch.int32, device=points.device)
+    count = torch.zeros(F, dtype=torch.int32, device=points.device)
+    for f in range(F):
+        val, union = _effective(points, valid, cls, A[f], B[f], frame_valid[f],
+                                width, height, crop_lo, crop_hi)
+        idx = torch.nonzero(union).squeeze(1)   # ascending: stable
+        count[f] = idx.numel()
+        rows = val[:, idx[:k_cap]].T
+        vals[f, :rows.shape[0]] = rows
+    return vals, count
+
+
+def count_union_ref(points, valid, cls, A, B, frame_valid, width, height,
+                    crop_lo, crop_hi):
+    """Plain PyTorch version of the counting half: count [F] int32."""
+    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    return torch.stack([
+        _effective(points, valid, cls, A[f], B[f], frame_valid[f], width,
+                   height, crop_lo, crop_hi)[1].sum().to(torch.int32)
+        for f in range(F)])
+
+
+def _launch(entry, points, valid, cls, A, B, frame_valid, width, height,
+            crop_lo, crop_hi, k_cap=None):
+    """Launch one CUDA entry point on the current stream; raises on any
+    launch error.  Returns (vals or None, count)."""
+    from cama_tpu_torch import _build
+
+    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    lib = _build.load()
+    dev = points.device
+    pts = points.contiguous()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    fv_u8 = frame_valid.to(torch.uint8).contiguous()
+    cls_c, A_c, B_c = cls.contiguous(), A.contiguous(), B.contiguous()
+    nblk = lib.cama_fc_blocks(P)
+    block_cnt = torch.empty((F, nblk), dtype=torch.int32, device=dev)
+    block_off = torch.empty((F, nblk), dtype=torch.int32, device=dev)
+    count = torch.empty(F, dtype=torch.int32, device=dev)
+    geo = [P, F, C, int(width), int(height),
+           *(float(v) for v in crop_lo), *(float(v) for v in crop_hi)]
+    ins = [t.data_ptr() for t in (pts, valid_u8, cls_c, fv_u8, A_c, B_c)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if entry == "count_union":
+            err = lib.cama_fc_count(*ins, *geo, block_cnt.data_ptr(),
+                                    block_off.data_ptr(), count.data_ptr(),
+                                    stream)
+            vals = None
+        else:
+            vals = torch.empty((F, k_cap, C), dtype=torch.int32, device=dev)
+            err = lib.cama_fc_project(*ins, *geo, int(k_cap),
+                                      block_cnt.data_ptr(),
+                                      block_off.data_ptr(), vals.data_ptr(),
+                                      count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
+    LAUNCHES[entry] += 1
+    return vals, count
+
+
+def _route(points):
+    if points.device.type == "cuda":
+        return "cuda"
+    if points.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"no fused_compact implementation for {points.device}")
+
+
+def fused_compact_project(points, valid, cls, A, B, frame_valid, width, height,
+                          crop_lo, crop_hi, k_cap):
+    """Fused project + dedup + compact over a chunk of frames.
+
+    Same arguments as fused_compact_project_ref.  Returns vals [F, k_cap, C]
+    int32 (rows >= count are unspecified on the card: mask by count) and
+    count [F] int32 — the true survivor total, so count > k_cap reports an
+    overflowed list.  CUDA tensors launch the kernel (or raise); CPU tensors
+    run the plain version."""
+    if _route(points) == "cpu":
+        return fused_compact_project_ref(points, valid, cls, A, B, frame_valid,
+                                         width, height, crop_lo, crop_hi,
+                                         k_cap)
+    return _launch("fused_compact_project", points, valid, cls, A, B,
+                   frame_valid, width, height, crop_lo, crop_hi, k_cap)
+
+
+def count_union(points, valid, cls, A, B, frame_valid, width, height,
+                crop_lo, crop_hi):
+    """Union survivor count [F] int32 per frame — the counting half of the
+    fused kernel (its passes 1 and 2), which sizes k_cap.  CUDA tensors
+    launch the kernel (or raise); CPU tensors run the plain version."""
+    if _route(points) == "cpu":
+        return count_union_ref(points, valid, cls, A, B, frame_valid, width,
+                               height, crop_lo, crop_hi)
+    return _launch("count_union", points, valid, cls, A, B, frame_valid,
+                   width, height, crop_lo, crop_hi)[1]
+
+
+def rasterize_from_union(vals, count, width, height):
+    """Dense packed raster [..., C, H, W] int32 from the union list
+    vals [..., K, C] int32 and count [...]: rows >= count and zero entries
+    become -1 (absent), then ops.raster.rasterize_from_compact paints with
+    the row index as priority."""
+    K = vals.shape[-2]
+    rows = torch.arange(K, dtype=torch.int32, device=vals.device)
+    live = rows[:, None] < count[..., None, None]
+    cvals = torch.where(live & (vals > 0), vals - 1, -1).transpose(-1, -2)
+    return rasterize_from_compact(cvals.contiguous(), width, height)

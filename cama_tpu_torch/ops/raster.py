@@ -1,0 +1,128 @@
+"""Overlay rasterization with deterministic paint order, in PyTorch.
+
+Counterpart of cama_tpu/ops/raster.py.  A point's paint priority is its
+index in the compacted survivor list (ascending = later drawn), packed with
+its class id as ``priority * MAX_CLS + cls``; a per-pixel scatter-max at the
+point centres followed by two rounds of plus-stencil max-dilation paints
+cv2's radius-2 disk (the L1 ball of radius 2) with "last drawn wins"
+semantics.  Outputs are integers and match the JAX functions exactly
+(tests/test_torch_raster.py).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# cv2.circle(radius=2, thickness=-1) footprint: (dy, dx) offsets
+CIRCLE_R2_OFFSETS = np.array(
+    [(-2, 0)]
+    + [(-1, dx) for dx in (-1, 0, 1)]
+    + [(0, dx) for dx in (-2, -1, 0, 1, 2)]
+    + [(1, dx) for dx in (-1, 0, 1)]
+    + [(2, 0)],
+    dtype=np.int32,
+)  # [13, 2]
+
+MAX_CLS = 8  # packing stride; class ids must stay below this
+
+
+def _plus_dilate(img):
+    """One round of max-dilation with the 3x3 plus stencil over [N, H, W];
+    out-of-image contributions are -1 (no paint), matching cv2's border
+    clipping."""
+    n = torch.nn.functional.pad(img, (1, 1, 1, 1), value=-1)
+    return torch.maximum(
+        img,
+        torch.maximum(
+            torch.maximum(n[..., :-2, 1:-1], n[..., 2:, 1:-1]),
+            torch.maximum(n[..., 1:-1, :-2], n[..., 1:-1, 2:]),
+        ),
+    )
+
+
+def _encode_effective(vu, keep, cls, width, height):
+    """Per-point pixel+class encoding and the consecutive-duplicate
+    suppression mask (a kept successor on the same pixel repaints the same
+    stencil later, so the point is dropped).
+
+    vu [..., P, 2] float32 (v, u), keep [..., P] bool, cls [..., P] int32.
+    Returns (enc [..., P] int32 with -1 at suppressed/dropped points,
+    eff [..., P] bool)."""
+    vi = vu[..., 0].to(torch.int32)
+    ui = vu[..., 1].to(torch.int32)
+    enc = (vi * width + ui) * MAX_CLS + cls
+    enc = torch.where(keep, enc, -1)
+    pix = torch.div(enc, MAX_CLS, rounding_mode="floor")
+    dup = torch.cat(
+        [keep[..., 1:] & keep[..., :-1] & (pix[..., 1:] == pix[..., :-1]),
+         torch.zeros_like(keep[..., :1])],
+        dim=-1,
+    )
+    eff = keep & ~dup
+    return torch.where(eff, enc, -1), eff
+
+
+def rasterize_from_compact(vals, width, height):
+    """Dense packed raster from a compacted survivor list.
+
+    vals: [..., K] int32 encodings ``pix * MAX_CLS + cls`` (-1 = empty), in
+    ascending paint order.  Returns packed [..., H, W] int32: -1 where
+    unpainted, else ``index * MAX_CLS + cls`` of the topmost point covering
+    the pixel."""
+    K = vals.shape[-1]
+    batch = vals.shape[:-1]
+    flat = vals.reshape(-1, K)
+    ok = flat >= 0
+    hw = height * width
+    pix = torch.where(ok, torch.div(flat, MAX_CLS, rounding_mode="floor"), hw)
+    order = torch.arange(K, dtype=torch.int32, device=vals.device)
+    prio = order * MAX_CLS + torch.where(ok, flat % MAX_CLS, 0)
+    prio = torch.where(ok, prio, -1).to(torch.int32)
+    buf = torch.full((flat.shape[0], hw + 1), -1, dtype=torch.int32,
+                     device=vals.device)
+    buf.scatter_reduce_(1, pix.to(torch.int64), prio, "amax")
+    out = buf[:, :hw].reshape(-1, height, width)
+    out = _plus_dilate(_plus_dilate(out))
+    return out.reshape(batch + (height, width))
+
+
+def packed_to_cls(packed):
+    """Packed raster -> uint8 class raster (0 = unpainted, else class_id +
+    1): the format that crosses device -> host for compositing."""
+    painted = packed >= 0
+    return torch.where(painted, packed % MAX_CLS + 1, 0).to(torch.uint8)
+
+
+def pack_cls_2bit(cls_raster):
+    """uint8 class raster (values 0..3) -> 2-bit packed [..., ceil(W/4)]
+    uint8; widths that are not a multiple of 4 are zero-padded
+    (unpack_cls_2bit slices back to the true width)."""
+    x = cls_raster.to(torch.uint8)
+    pad = (-x.shape[-1]) % 4
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return (x[..., 0::4] | (x[..., 1::4] << 2) | (x[..., 2::4] << 4)
+            | (x[..., 3::4] << 6))
+
+
+def unpack_cls_2bit(packed2, width):
+    """Host-side inverse of pack_cls_2bit (NumPy)."""
+    p = np.asarray(packed2)
+    out = np.empty(p.shape[:-1] + (p.shape[-1] * 4,), np.uint8)
+    out[..., 0::4] = p & 3
+    out[..., 1::4] = (p >> 2) & 3
+    out[..., 2::4] = (p >> 4) & 3
+    out[..., 3::4] = (p >> 6) & 3
+    return out[..., :width]
+
+
+def build_color_table(class_names):
+    """Per-class BGR color rows; any class other than "lane_marking" takes
+    the "Crosswalk_Line" color, as the reference renderer does."""
+    from cama_tpu.ops.lift import COLOR_MAPS
+
+    rows = []
+    for name in class_names:
+        eff = name if name == "lane_marking" else "Crosswalk_Line"
+        rows.append(COLOR_MAPS[eff][::-1])  # BGR, as cv2 draws on BGR images
+    return np.asarray(rows, dtype=np.uint8)

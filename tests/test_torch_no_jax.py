@@ -1,0 +1,94 @@
+"""cama_tpu_torch runs with jax unimportable, and never loads jax where it
+is installed.  These run in subprocesses: tests/conftest.py imports jax
+into every test process."""
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    import numpy as np
+    import cama_tpu_torch.cli
+    import cama_tpu_torch.pipeline as tp
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    clip = make_fixture_clip(tempfile.mkdtemp(), n_frames=3,
+                             with_images=False)
+    pipe = tp.ClipPipeline(clip_path=clip, chunk=2, device="cpu")
+    rasters = dict(pipe.iter_overlay_rasters("cama"))
+    assert len(rasters) >= 2 and all(r.any() for r in rasters.values())
+    loaded = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "jaxlib")))
+    assert all(sys.modules[m] is None for m in loaded), loaded
+    try:
+        import jax  # noqa: F401
+    except ImportError:
+        print("NO_JAX_OK", len(rasters))
+""")
+
+
+# jax is installed here and nothing blocks it: the whole CLI path (config,
+# scene compile, device lane, frame cache, native mosaic, video encode)
+# must leave it unloaded, along with every cama_tpu module that needs it
+_CHILD_INSTALLED = textwrap.dedent("""
+    import importlib.util, os, sys, tempfile
+    import yaml
+    assert importlib.util.find_spec("jax") is not None
+    from cama_tpu_torch.cli import main
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    root = tempfile.mkdtemp()
+    make_fixture_clip(os.path.join(root, "c"), scene_name="s", n_frames=3)
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"converted_dataroot": os.path.join(root, "c"),
+                        "scene_names": ["s"],
+                        "output_video_dir": os.path.join(root, "v")}, f)
+    assert main(["--config", cfg, "--device", "cpu"]) == 0
+    assert sorted(os.listdir(os.path.join(root, "v"))) == [
+        "s_cama.mp4", "s_nuScenes.mp4"]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib") or m.startswith(
+                        ("cama_tpu.io", "cama_tpu.se3", "cama_tpu.ops.geometry",
+                         "cama_tpu.pipeline", "cama_tpu.config")))
+    assert not loaded, loaded
+    print("JAX_NEVER_LOADED")
+""")
+
+
+def _run_child(code, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", code], cwd=str(cwd),
+                          env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_port_runs_without_jax(tmp_path):
+    proc = _run_child(_CHILD, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_port_never_loads_installed_jax(tmp_path):
+    proc = _run_child(_CHILD_INSTALLED, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_NEVER_LOADED" in proc.stdout
+
+
+def test_port_sources_never_import_jax():
+    pkg = os.path.join(REPO, "cama_tpu_torch")
+    offenders = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    for line in f:
+                        s = line.strip()
+                        if s.startswith(("import jax", "from jax")):
+                            offenders.append(path)
+    assert not offenders, offenders
