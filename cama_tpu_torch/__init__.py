@@ -11,12 +11,17 @@ whose cama_tpu modules pull jax in, and has its own device path:
   io/scene.py           scene compiler, scene cache, scene tensors on the device
   io/fixture.py         synthetic fixture clip
   config.py             config schema of main.py
-  ops/raster.py         scatter-max + plus-stencil dilation rasterizer
+  ops/geometry.py       frame matrices (host) and project_frames (device)
+  ops/raster.py         compaction, scatter-max + plus-stencil dilation
+                        rasterizers
   ops/fused_compact.py  fused project + dedup + compact: the CUDA kernel's
                         wrapper, its plain PyTorch version, launch counts
-  csrc/fused_compact.cu the hand-written kernel (sm_90a), built by _build.py
-  pipeline.py           ClipPipeline: chunked device passes -> videos
+  ops/pallas_project.py the 'pallas' lane's projection kernel's wrapper
+  ops/paint.py          the max-paint probe kernel's wrapper
+  csrc/*.cu             the hand-written kernels (sm_90a), built by _build.py
+  pipeline.py           ClipPipeline: the raster_kernel lanes -> videos
   cli.py                python -m cama_tpu_torch.cli --config config.yaml
+  tools/bench_kernels.py  kernel-strategy measurements on the card
 
 This package imports torch and never jax, even where jax is installed.
 """

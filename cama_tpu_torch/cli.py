@@ -4,7 +4,9 @@ release zip, and write the cama + nuScenes overlay videos.
 
     python -m cama_tpu_torch.cli --config config.yaml [--device cuda|cpu]
 
-The device comes from --device, else cama_configs.device, else 'cuda'.
+The device comes from --device, else cama_configs.device, else 'cuda'; the
+device lane from cama_configs.raster_kernel, else 'auto' (which serves
+'fused').
 Scenes are written one after another.  Not supported yet, and reported as
 failures: the `sites:` aggregation block, and scenes that still need the
 nuScenes -> clip conversion (convert them once with main.py; the JAX
@@ -102,9 +104,9 @@ def _prepare_scene(configs, scene_name, output_dir, output_video_dir,
         raise FileNotFoundError(
             f"{clip_path} is not a converted clip (no attribute.json); "
             "convert the scene with main.py first")
-    # every raster_kernel of the JAX package renders the same videos; this
-    # package serves them all with its fused kernel
-    pipe = ClipPipeline(configs.get("cama_configs"), clip_path, device=device)
+    kern = (configs.get("cama_configs") or {}).get("raster_kernel") or "auto"
+    pipe = ClipPipeline(configs.get("cama_configs"), clip_path,
+                        raster_kernel=kern, device=device)
     if pipe.scene.from_cache:
         print(f"[{scene_name}] scene cache hit — lifting skipped")
     paths = {}
@@ -119,7 +121,8 @@ def _prepare_scene(configs, scene_name, output_dir, output_video_dir,
 def _write_scene_videos(configs, scene_name, pipe, paths, on_first_frame=None):
     """One pass over the clip writes every source's video."""
     print(f"[{scene_name}] generating reprojection videos "
-          f"({', '.join(paths)} labels) on {pipe.device}...")
+          f"({', '.join(paths)} labels) on {pipe.device}, raster_kernel "
+          f"{pipe.raster_kernel!r}...")
     t0 = time.perf_counter()
     counts = pipe.write_videos(paths, preset=configs.get("video_preset"),
                                on_first_frame=on_first_frame)

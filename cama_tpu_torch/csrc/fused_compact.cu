@@ -32,63 +32,36 @@
 // list lives in device memory as int32, so the TPU kernel's VMEM list
 // budget and its 24-bit bf16 byte-split encoding do not exist here.
 //
-// Bit-exactness: every product and sum is an explicit round-to-nearest
-// intrinsic in the order ((m0*x + m1*y) + m2*z) + m3, the divide is
-// __fdiv_rn, and the build uses -fmad=false; the plain PyTorch version
-// (ops/fused_compact.py) evaluates the same sequence elementwise, so the
+// Bit-exactness: the projection is csrc/project.cuh's, evaluated in the
+// same order as the plain PyTorch version (ops/fused_compact.py), so the
 // two agree exactly on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "project.cuh"
+
 namespace {
 
+using cama::Geo;
+using cama::MAX_CAM;
 constexpr int MAX_CLS = 8;
-constexpr int MAX_CAM = 8;
 constexpr int BLOCK = 256;
 constexpr int WARPS = BLOCK / 32;
 constexpr int SCAN_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Geo {
-  int P, F, C, W, H;
-  float lo0, lo1, lo2, hi0, hi1, hi2;
-};
-
-__device__ __forceinline__ float row4(const float* m, float x, float y,
-                                      float z) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], x), __fmul_rn(m[1], y)),
-                             __fmul_rn(m[2], z)),
-                   m[3]);
-}
-
 // Pixel code of point (x, y, z) in every camera: -1 when not kept.
-// mats: A rows 0..2 (12 floats) followed by B[c] rows 0..2 (12 per camera).
 __device__ __forceinline__ void project_point(const float* mats, const Geo& g,
                                               float x, float y, float z,
                                               bool ok, int pix[MAX_CAM]) {
-  const float cx = row4(mats + 0, x, y, z);
-  const float cy = row4(mats + 4, x, y, z);
-  const float cz = row4(mats + 8, x, y, z);
-  ok = ok && cx >= g.lo0 && cx <= g.hi0 && cy >= g.lo1 && cy <= g.hi1 &&
-       cz >= g.lo2 && cz <= g.hi2;
-  const float fw = (float)g.W, fh = (float)g.H;
+  ok = ok && cama::in_crop(mats, g, x, y, z);
 #pragma unroll
   for (int c = 0; c < MAX_CAM; ++c) {
     pix[c] = -1;
-    if (c < g.C) {
-      const float* b = mats + 12 + 12 * c;
-      const float px = row4(b + 0, x, y, z);
-      const float py = row4(b + 4, x, y, z);
-      const float pz = row4(b + 8, x, y, z);
-      const bool mz = pz > 0.0f;
-      const float sz = mz ? pz : 1.0f;
-      const float u = __fdiv_rn(px, sz);
-      const float v = __fdiv_rn(py, sz);
-      const bool keep =
-          ok && mz && u >= 0.0f && u < fw && v >= 0.0f && v < fh;
-      if (keep) pix[c] = (int)v * g.W + (int)u;
-    }
+    float u, v;
+    if (c < g.C && cama::project_cam(mats, g, c, x, y, z, ok, u, v))
+      pix[c] = (int)v * g.W + (int)u;
   }
 }
 
@@ -102,13 +75,12 @@ fc_pass(const float* __restrict__ pts, const uint8_t* __restrict__ valid,
         int nblk, int* __restrict__ block_cnt,
         const int* __restrict__ block_off, int* __restrict__ vals,
         int k_cap) {
-  __shared__ float mats[12 + 12 * MAX_CAM];
+  __shared__ float mats[cama::MATS_FLOATS];
   __shared__ int warp_cnt[WARPS];
   const int f = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (tid < 12) mats[tid] = A[(size_t)f * 16 + tid];
-  if (tid < 12 * g.C) mats[12 + tid] = B[(size_t)f * g.C * 12 + tid];
+  cama::load_mats(mats, A, B, f, g.C, tid);
   __syncthreads();
   const bool frame_ok = fv[f] != 0;
 
@@ -217,15 +189,6 @@ fc_scan(const int* __restrict__ block_cnt, int nblk,
   if (tid == 0) count[f] = carry;
 }
 
-Geo make_geo(int P, int F, int C, int W, int H, float lo0, float lo1,
-             float lo2, float hi0, float hi1, float hi2) {
-  Geo g;
-  g.P = P; g.F = F; g.C = C; g.W = W; g.H = H;
-  g.lo0 = lo0; g.lo1 = lo1; g.lo2 = lo2;
-  g.hi0 = hi0; g.hi1 = hi1; g.hi2 = hi2;
-  return g;
-}
-
 }  // namespace
 
 extern "C" {
@@ -241,7 +204,7 @@ int cama_fc_count(const float* pts, const uint8_t* valid, const int* cls,
                   float hi0, float hi1, float hi2, int* block_cnt,
                   int* block_off, int* count, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const Geo g = make_geo(P, F, C, W, H, lo0, lo1, lo2, hi0, hi1, hi2);
+  const Geo g = cama::make_geo(P, F, C, W, H, lo0, lo1, lo2, hi0, hi1, hi2);
   const int nblk = cama_fc_blocks(P);
   fc_pass<false><<<dim3(nblk, F), BLOCK, 0, s>>>(
       pts, valid, cls, fv, A, B, g, nblk, block_cnt, nullptr, nullptr, 0);
@@ -261,7 +224,7 @@ int cama_fc_project(const float* pts, const uint8_t* valid, const int* cls,
                           stream);
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  const Geo g = make_geo(P, F, C, W, H, lo0, lo1, lo2, hi0, hi1, hi2);
+  const Geo g = cama::make_geo(P, F, C, W, H, lo0, lo1, lo2, hi0, hi1, hi2);
   const int nblk = cama_fc_blocks(P);
   fc_pass<true><<<dim3(nblk, F), BLOCK, 0, s>>>(
       pts, valid, cls, fv, A, B, g, nblk, nullptr, block_off, vals, k_cap);

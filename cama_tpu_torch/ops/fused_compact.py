@@ -11,17 +11,16 @@ count[f] is the true number of rows, also when it exceeds k_cap.
 
 `fused_compact_project` launches the hand-written CUDA kernel
 (csrc/fused_compact.cu) for CUDA tensors, and uses the plain PyTorch version
-`fused_compact_project_ref` only for CPU tensors.  Both evaluate the
-projection elementwise in the same order, ((m0*x + m1*y) + m2*z) + m3 with
-IEEE division, so they agree exactly on the card.
+`fused_compact_project_ref` only for CPU tensors.  Both project with
+ops.geometry.project_frames' elementwise order, so they agree exactly on the
+card.
 """
 from __future__ import annotations
 
 import torch
 
+from cama_tpu_torch.ops.geometry import check_frame_inputs, project_frames, route
 from cama_tpu_torch.ops.raster import MAX_CLS, rasterize_from_compact
-
-MAX_CAM = 8  # cameras per frame the kernel holds in registers
 
 # launches of each CUDA entry point, counted by its wrapper (plain-version
 # calls on CPU tensors do not count)
@@ -33,30 +32,14 @@ def reset_launches():
         LAUNCHES[key] = 0
 
 
-def _row(m, x, y, z):
-    """((m0*x + m1*y) + m2*z) + m3 over the last axis of m [..., 4], broadcast
-    against the point coordinates [P]."""
-    return ((m[..., 0, None] * x + m[..., 1, None] * y)
-            + m[..., 2, None] * z) + m[..., 3, None]
-
-
 def _pixels(points, ok, A, B, width, height, crop_lo, crop_hi):
-    """Pixel codes [C, P] int32 of one frame (-1 = not kept)."""
-    x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    for r in range(3):
-        cr = _row(A[r], x, y, z)
-        ok = ok & (cr >= float(crop_lo[r])) & (cr <= float(crop_hi[r]))
-    px = _row(B[:, 0], x, y, z)                 # [C, P]
-    py = _row(B[:, 1], x, y, z)
-    pz = _row(B[:, 2], x, y, z)
-    mask_z = pz > 0
-    safe_z = torch.where(mask_z, pz, torch.ones_like(pz))
-    u = px / safe_z
-    v = py / safe_z
-    keep = (mask_z & (u >= 0) & (u < width) & (v >= 0) & (v < height)
-            & ok[None, :])
-    pix = v.to(torch.int32) * width + u.to(torch.int32)
-    return torch.where(keep, pix, -1)
+    """Pixel codes [C, P] int32 of one frame (-1 = not kept); `ok` [P] is
+    the point validity already combined with the frame's."""
+    vu, keep = project_frames(points, ok, A[None], B[None],
+                              torch.ones(1, dtype=torch.bool, device=ok.device),
+                              width, height, crop_lo, crop_hi)
+    pix = vu[0, ..., 0].to(torch.int32) * width + vu[0, ..., 1].to(torch.int32)
+    return torch.where(keep[0], pix, -1)
 
 
 def _effective(points, valid, cls, A, B, fv, width, height, crop_lo, crop_hi):
@@ -67,28 +50,6 @@ def _effective(points, valid, cls, A, B, fv, width, height, crop_lo, crop_hi):
     eff = (pix >= 0) & (succ != pix)
     val = torch.where(eff, pix * MAX_CLS + cls[None, :] + 1, 0)
     return val, eff.any(dim=0)
-
-
-def _check(points, valid, cls, A, B, frame_valid):
-    P = points.shape[0]
-    F, C = B.shape[0], B.shape[1]
-    if not 1 <= C <= MAX_CAM:
-        raise ValueError(f"fused kernel supports 1..{MAX_CAM} cameras, got {C}")
-    if P < 1:
-        raise ValueError("fused kernel needs at least one point")
-    expect = {"points": (points, (P, 3), torch.float32),
-              "valid": (valid, (P,), torch.bool),
-              "cls": (cls, (P,), torch.int32),
-              "A": (A, (F, 4, 4), torch.float32),
-              "B": (B, (F, C, 3, 4), torch.float32),
-              "frame_valid": (frame_valid, (F,), torch.bool)}
-    for name, (t, shape, dtype) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != points.device:
-            raise ValueError(f"{name} is on {t.device}, points on {points.device}")
-    return P, F, C
 
 
 def fused_compact_project_ref(points, valid, cls, A, B, frame_valid, width,
@@ -104,7 +65,7 @@ def fused_compact_project_ref(points, valid, cls, A, B, frame_valid, width,
     Returns:
         vals [F, k_cap, C] int32 (rows >= count are 0), count [F] int32.
     """
-    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    P, F, C = check_frame_inputs(points, valid, A, B, frame_valid, cls)
     vals = torch.zeros((F, k_cap, C), dtype=torch.int32, device=points.device)
     count = torch.zeros(F, dtype=torch.int32, device=points.device)
     for f in range(F):
@@ -120,7 +81,7 @@ def fused_compact_project_ref(points, valid, cls, A, B, frame_valid, width,
 def count_union_ref(points, valid, cls, A, B, frame_valid, width, height,
                     crop_lo, crop_hi):
     """Plain PyTorch version of the counting half: count [F] int32."""
-    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    P, F, C = check_frame_inputs(points, valid, A, B, frame_valid, cls)
     return torch.stack([
         _effective(points, valid, cls, A[f], B[f], frame_valid[f], width,
                    height, crop_lo, crop_hi)[1].sum().to(torch.int32)
@@ -133,7 +94,7 @@ def _launch(entry, points, valid, cls, A, B, frame_valid, width, height,
     launch error.  Returns (vals or None, count)."""
     from cama_tpu_torch import _build
 
-    P, F, C = _check(points, valid, cls, A, B, frame_valid)
+    P, F, C = check_frame_inputs(points, valid, A, B, frame_valid, cls)
     lib = _build.load()
     dev = points.device
     pts = points.contiguous()
@@ -166,14 +127,6 @@ def _launch(entry, points, valid, cls, A, B, frame_valid, width, height,
     return vals, count
 
 
-def _route(points):
-    if points.device.type == "cuda":
-        return "cuda"
-    if points.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"no fused_compact implementation for {points.device}")
-
-
 def fused_compact_project(points, valid, cls, A, B, frame_valid, width, height,
                           crop_lo, crop_hi, k_cap):
     """Fused project + dedup + compact over a chunk of frames.
@@ -183,7 +136,7 @@ def fused_compact_project(points, valid, cls, A, B, frame_valid, width, height,
     count [F] int32 — the true survivor total, so count > k_cap reports an
     overflowed list.  CUDA tensors launch the kernel (or raise); CPU tensors
     run the plain version."""
-    if _route(points) == "cpu":
+    if route(points, "fused_compact") == "cpu":
         return fused_compact_project_ref(points, valid, cls, A, B, frame_valid,
                                          width, height, crop_lo, crop_hi,
                                          k_cap)
@@ -196,7 +149,7 @@ def count_union(points, valid, cls, A, B, frame_valid, width, height,
     """Union survivor count [F] int32 per frame — the counting half of the
     fused kernel (its passes 1 and 2), which sizes k_cap.  CUDA tensors
     launch the kernel (or raise); CPU tensors run the plain version."""
-    if _route(points) == "cpu":
+    if route(points, "fused_compact") == "cpu":
         return count_union_ref(points, valid, cls, A, B, frame_valid, width,
                                height, crop_lo, crop_hi)
     return _launch("count_union", points, valid, cls, A, B, frame_valid,

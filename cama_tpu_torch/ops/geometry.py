@@ -1,18 +1,29 @@
-"""Per-frame matrix composition on the host (float64).
+"""Per-frame matrix composition on the host (float64), and the device
+projection of points into every frame and camera (float32).
 
-Copies of cama_tpu/ops/geometry.py's host half, which cannot be imported
-without jax; the pose seek comes from cama_tpu_torch.se3.  Pose chains stay in float64 on the host; only the composed
-matrices are cast to float32 for the device.  Bit-identical to the JAX
-package's functions (tests/test_torch_pipeline.py).
+The host half copies cama_tpu/ops/geometry.py's, which cannot be imported
+without jax; the pose seek comes from cama_tpu_torch.se3.  Pose chains stay
+in float64 on the host; only the composed matrices are cast to float32 for
+the device.  Bit-identical to the JAX package's functions
+(tests/test_torch_pipeline.py).
+
+`project_frames` is the counterpart of the JAX einsum projection.  Every
+device lane of this package projects with the same elementwise order,
+((m0*x + m1*y) + m2*z) + m3 with IEEE division, so the CUDA kernels
+(csrc/project.cuh) and their plain versions keep the same points bit for
+bit on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from cama_tpu.ops.lift import CROP_BOX
 from cama_tpu_torch.se3 import apply_seek, seek_indices
+
+MAX_CAM = 8  # cameras per frame the projection kernels hold on chip
 
 
 @dataclass
@@ -82,3 +93,76 @@ def crop_bounds(crop=None):
     lo = np.array([crop["x_min"], crop["y_min"], crop["z_min"]], dtype=np.float32)
     hi = np.array([crop["x_max"], crop["y_max"], crop["z_max"]], dtype=np.float32)
     return lo, hi
+
+
+def _row(m, x, y, z):
+    """((m0*x + m1*y) + m2*z) + m3 over the last axis of m [..., 4], broadcast
+    against the point coordinates [P] -> [..., P]."""
+    return ((m[..., 0, None] * x + m[..., 1, None] * y)
+            + m[..., 2, None] * z) + m[..., 3, None]
+
+
+def project_frames(points, valid, A, B, frame_valid, width, height, crop_lo,
+                   crop_hi):
+    """Project all points into all frames x cameras (plain PyTorch, any
+    device).
+
+    Args:
+        points [P, 3] f32, valid [P] bool
+        A [F, 4, 4] f32 world -> chassis, B [F, C, 3, 4] f32 world -> pixel
+        frame_valid [F] bool
+        width/height: output image size; crop_lo/crop_hi: [3] chassis box
+            (inclusive)
+    Returns:
+        vu [F, C, P, 2] f32 (v, u) and keep [F, C, P] bool — crop & z > 0 &
+        in-bounds & valid & frame_valid.
+    """
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    ok = valid[None, :] & frame_valid[:, None]             # [F, P]
+    for r in range(3):
+        cr = _row(A[:, r], x, y, z)
+        ok = ok & (cr >= float(crop_lo[r])) & (cr <= float(crop_hi[r]))
+    px = _row(B[:, :, 0], x, y, z)                         # [F, C, P]
+    py = _row(B[:, :, 1], x, y, z)
+    pz = _row(B[:, :, 2], x, y, z)
+    mask_z = pz > 0
+    safe_z = torch.where(mask_z, pz, torch.ones_like(pz))
+    u = px / safe_z
+    v = py / safe_z
+    keep = (mask_z & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+            & ok[:, None, :])
+    return torch.stack([v, u], dim=-1), keep
+
+
+def check_frame_inputs(points, valid, A, B, frame_valid, cls=None):
+    """Validate a kernel's projection inputs: dtypes, shapes, one device and
+    1..MAX_CAM cameras.  Returns (P, F, C)."""
+    P = points.shape[0]
+    F, C = B.shape[0], B.shape[1]
+    if not 1 <= C <= MAX_CAM:
+        raise ValueError(f"the projection kernels support 1..{MAX_CAM} "
+                         f"cameras, got {C}")
+    if P < 1:
+        raise ValueError("the projection kernels need at least one point")
+    expect = {"points": (points, (P, 3), torch.float32),
+              "valid": (valid, (P,), torch.bool),
+              "A": (A, (F, 4, 4), torch.float32),
+              "B": (B, (F, C, 3, 4), torch.float32),
+              "frame_valid": (frame_valid, (F,), torch.bool)}
+    if cls is not None:
+        expect["cls"] = (cls, (P,), torch.int32)
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != points.device:
+            raise ValueError(f"{name} is on {t.device}, points on {points.device}")
+    return P, F, C
+
+
+def route(t, kernel):
+    """'cuda' for a CUDA tensor (launch the kernel), 'cpu' for a CPU tensor
+    (the plain version); any other device raises."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"no {kernel} implementation for {t.device}")

@@ -62,6 +62,85 @@ def _encode_effective(vu, keep, cls, width, height):
     return torch.where(eff, enc, -1), eff
 
 
+def scatter_max(pix, prio, hw):
+    """Per-row scatter-max of priorities into rasters that start at -1.
+
+    pix [N, K] int (flat pixel index; `hw` = dropped), prio [N, K] int32.
+    Returns [N, hw] int32."""
+    buf = torch.full((pix.shape[0], hw + 1), -1, dtype=torch.int32,
+                     device=pix.device)
+    buf.scatter_reduce_(1, pix.to(torch.int64), prio, "amax")
+    return buf[:, :hw]
+
+
+def _scatter_dilate(pix, prio, width, height, batch):
+    """scatter_max at the centres, then the two plus-stencil dilations that
+    paint cv2's radius-2 disk: packed [*batch, H, W] int32."""
+    out = scatter_max(pix, prio, height * width).reshape(-1, height, width)
+    return _plus_dilate(_plus_dilate(out)).reshape(batch + (height, width))
+
+
+def rasterize_packed_fast(vu, keep, cls, width, height, prio_offset=0):
+    """Dense packed raster straight from a projection, with no compaction
+    (the 'scatter' lane): every kept point scatters
+    ``(prio_offset + index) * MAX_CLS + cls`` at its centre pixel, then the
+    two dilations.
+
+    vu [..., P, 2] f32 (v, u), keep [..., P] bool, cls [P] int32.  Returns
+    packed [..., H, W] int32: -1 where unpainted."""
+    P = vu.shape[-2]
+    vi = vu[..., 0].to(torch.int32)
+    ui = vu[..., 1].to(torch.int32)
+    order = torch.arange(P, dtype=torch.int32, device=vu.device)
+    prio = torch.broadcast_to((prio_offset + order) * MAX_CLS + cls,
+                              vu.shape[:-1])
+    # in-image guard: a kept point with an out-of-image centre would alias
+    # vi * width + ui onto a wrong in-image pixel
+    inside = (vi >= 0) & (vi < height) & (ui >= 0) & (ui < width)
+    pix = torch.where(keep & inside, vi * width + ui, height * width)
+    return _scatter_dilate(pix.reshape(-1, P), prio.reshape(-1, P), width,
+                           height, vu.shape[:-2])
+
+
+def effective_counts(vu, keep, cls, width, height):
+    """Effective (deduped) kept-point counts [...] int32: compact_points'
+    counts without the compaction, for the counting pass that sizes k."""
+    _, eff = _encode_effective(vu, keep, cls, width, height)
+    return eff.sum(dim=-1, dtype=torch.int32)
+
+
+def compact_points(vu, keep, cls, width, height, k):
+    """Stable compaction of the deduped kept points into a fixed-size list
+    per (frame, camera), in original point order (= paint order).
+
+    vu [..., P, 2] f32, keep [..., P] bool, cls [P] int32.  Returns
+    vals [..., k] int32 (encodings ``pix * MAX_CLS + cls``, -1 past the
+    count; the first k survivors when count > k) and counts [...] int32,
+    the true survivor totals.  Equals the JAX sort_key_val compaction:
+    each survivor's rank is the running count of survivors before it."""
+    P = vu.shape[-2]
+    enc, eff = _encode_effective(vu, keep, cls, width, height)
+    eff = eff.reshape(-1, P)
+    vals = compact_rows(enc.reshape(-1, P), eff, k)
+    batch = vu.shape[:-2]
+    return (vals.reshape(batch + (k,)),
+            eff.sum(dim=-1, dtype=torch.int32).reshape(batch))
+
+
+def compact_rows(enc, sel, k):
+    """Stable compaction of each row's selected entries to its front.
+
+    enc [N, P] int32, sel [N, P] bool.  Returns [N, k] int32: the first k
+    selected entries of each row in order, -1 past them.  A selected entry's
+    slot is the running count of selected entries before it."""
+    rank = torch.cumsum(sel, dim=-1, dtype=torch.int32) - 1
+    slot = torch.where(sel & (rank < k), rank, k)  # k = dropped
+    out = torch.full((enc.shape[0], k + 1), -1, dtype=torch.int32,
+                     device=enc.device)
+    out.scatter_(1, slot.to(torch.int64), enc)
+    return out[:, :k]
+
+
 def rasterize_from_compact(vals, width, height):
     """Dense packed raster from a compacted survivor list.
 
@@ -70,20 +149,14 @@ def rasterize_from_compact(vals, width, height):
     unpainted, else ``index * MAX_CLS + cls`` of the topmost point covering
     the pixel."""
     K = vals.shape[-1]
-    batch = vals.shape[:-1]
     flat = vals.reshape(-1, K)
     ok = flat >= 0
-    hw = height * width
-    pix = torch.where(ok, torch.div(flat, MAX_CLS, rounding_mode="floor"), hw)
+    pix = torch.where(ok, torch.div(flat, MAX_CLS, rounding_mode="floor"),
+                      height * width)
     order = torch.arange(K, dtype=torch.int32, device=vals.device)
     prio = order * MAX_CLS + torch.where(ok, flat % MAX_CLS, 0)
     prio = torch.where(ok, prio, -1).to(torch.int32)
-    buf = torch.full((flat.shape[0], hw + 1), -1, dtype=torch.int32,
-                     device=vals.device)
-    buf.scatter_reduce_(1, pix.to(torch.int64), prio, "amax")
-    out = buf[:, :hw].reshape(-1, height, width)
-    out = _plus_dilate(_plus_dilate(out))
-    return out.reshape(batch + (height, width))
+    return _scatter_dilate(pix, prio, width, height, vals.shape[:-1])
 
 
 def packed_to_cls(packed):

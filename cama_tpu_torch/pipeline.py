@@ -1,12 +1,21 @@
 """Per-clip orchestration on PyTorch: overlay videos from a compiled scene.
 
 Counterpart of cama_tpu/pipeline.py's single-scene dense path.  Per chunk of
-frames, one device program (`_overlay_chunk_fused`) runs the fused CUDA
-kernel (project + crop + dedup + stable compaction, ops/fused_compact.py),
-then a scatter-max at the survivors' centres and two plus-stencil
-dilations (ops/raster.py), and ships uint8 class rasters (2-bit packed when
-the classes fit) to the host, where base images are undistorted once per
-frame and composited into the 3x2 video mosaic.
+frames, one device program of the pipeline's raster_kernel lane turns the
+scene's points into class rasters:
+
+  'fused'    the fused CUDA kernel (project + crop + dedup + stable
+             compaction, ops/fused_compact.py) -> union list
+  'pallas'   the CUDA projection kernel (ops/pallas_project.py), then the
+             per-camera dedup + stable compaction (ops/raster.py)
+  'compact'  the same program with the plain projection (ops/geometry.py)
+  'scatter'  the plain projection, every kept point scattered, no list
+
+then a scatter-max at the list's centres and two plus-stencil dilations
+(ops/raster.py), and ships uint8 class rasters (2-bit packed when the
+classes fit) to the host, where base images are undistorted once per frame
+and composited into the 3x2 video mosaic.  Every lane keeps the same points
+and paints them in the same order, so all four give the same rasters.
 
 The device is explicit: `device='cuda'` runs the kernels and raises without
 a card; `device='cpu'` runs the plain PyTorch versions (what the tests do).
@@ -38,16 +47,27 @@ from cama_tpu_torch.ops.fused_compact import (
     fused_compact_project,
     rasterize_from_union,
 )
-from cama_tpu_torch.ops.geometry import compose_frame_matrices, crop_bounds
+from cama_tpu_torch.ops.geometry import (
+    compose_frame_matrices,
+    crop_bounds,
+    project_frames,
+)
+from cama_tpu_torch.ops.pallas_project import project_frame_pallas
 from cama_tpu_torch.ops.raster import (
     CIRCLE_R2_OFFSETS,
     MAX_CLS,
     build_color_table,
+    compact_points,
+    effective_counts,
     pack_cls_2bit,
     packed_to_cls,
+    rasterize_from_compact,
+    rasterize_packed_fast,
     unpack_cls_2bit,
 )
 from cama_tpu_torch.ops.undistort import RemapCache, remap_host
+
+RASTER_KERNELS = ("fused", "pallas", "compact", "scatter", "auto")
 
 
 def _host_project_chunk(points, valid, A, B, fv, width, height, lo, hi):
@@ -137,6 +157,54 @@ def _overlay_chunk_fused(points, valid, cls, A, B, frame_valid, crop_lo,
     return (pack_cls_2bit(rasters) if two_bit else rasters), count
 
 
+def _compact_raster(vu, keep, cls, width, height, k, two_bit):
+    """Projection -> per-camera compaction to k entries -> rasters.
+    Returns (class rasters, packed when two_bit, and the largest per-camera
+    survivor count [F] int32)."""
+    vals, counts = compact_points(vu, keep, cls, width, height, k)
+    rasters = packed_to_cls(rasterize_from_compact(vals, width, height))
+    return (pack_cls_2bit(rasters) if two_bit else rasters), counts.amax(-1)
+
+
+def _overlay_chunk_pallas(points, valid, cls, A, B, frame_valid, crop_lo,
+                          crop_hi, width, height, k, two_bit):
+    """The 'pallas' lane: one launch of the CUDA projection kernel for the
+    chunk, then compaction and the compact rasterizer.  Returns (rasters,
+    counts [F])."""
+    vu, keep = project_frame_pallas(points, valid, A, B, frame_valid, width,
+                                    height, crop_lo, crop_hi)
+    return _compact_raster(vu, keep, cls, width, height, k, two_bit)
+
+
+def _overlay_chunk_compact(points, valid, cls, A, B, frame_valid, crop_lo,
+                           crop_hi, width, height, k, two_bit):
+    """The 'compact' lane (single stage): the 'pallas' program with the
+    plain projection.  Returns (rasters, counts [F])."""
+    vu, keep = project_frames(points, valid, A, B, frame_valid, width, height,
+                              crop_lo, crop_hi)
+    return _compact_raster(vu, keep, cls, width, height, k, two_bit)
+
+
+def _overlay_chunk(points, valid, cls, A, B, frame_valid, crop_lo, crop_hi,
+                   width, height, two_bit):
+    """The 'scatter' lane: the plain projection, then every kept point
+    scattered at its centre (no compaction).  Returns (rasters, the largest
+    per-camera kept count [F], which is at most P)."""
+    vu, keep = project_frames(points, valid, A, B, frame_valid, width, height,
+                              crop_lo, crop_hi)
+    rasters = packed_to_cls(rasterize_packed_fast(vu, keep, cls, width,
+                                                  height))
+    kept = keep.sum(dim=-1, dtype=torch.int32).amax(-1)
+    return (pack_cls_2bit(rasters) if two_bit else rasters), kept
+
+
+_LIST_PROGRAMS = {"fused": _overlay_chunk_fused,
+                  "pallas": _overlay_chunk_pallas,
+                  "compact": _overlay_chunk_compact}
+_LANE_PROJECTIONS = {"pallas": project_frame_pallas,
+                     "compact": project_frames}
+
+
 def _close_all_sinks(sinks):
     """Close every sink even when one close() raises; re-raise the first
     failure after all encoders have been released."""
@@ -152,7 +220,7 @@ def _close_all_sinks(sinks):
 
 
 def _pow2_cap(n, P):
-    """k_cap: the power of two >= n, at least 1024 and at most P."""
+    """List size k: the power of two >= n, at least 1024 and at most P."""
     k = 1024
     while k < n:
         k *= 2
@@ -163,17 +231,24 @@ class ClipPipeline:
     def __init__(self, configs=None, clip_path=None, sources=("cama", "nuscenes"),
                  chunk=8, scene: Scene = None, raster_kernel=None,
                  device="cuda"):
-        """raster_kernel: kept for signature parity with cama_tpu's
-        ClipPipeline; 'fused' (or None) is the only device program of this
-        package, any other value raises.  device: 'cuda' runs the CUDA
-        kernels and raises when no card is present; 'cpu' runs their plain
-        PyTorch versions."""
+        """raster_kernel: the device lane (module docstring): 'fused',
+        'pallas', 'compact', 'scatter' or 'auto'; the constructor argument
+        wins, then configs['raster_kernel'], then 'fused'.  'auto' serves
+        'fused', the JAX package's production preference once its warm-up
+        is done: cama_tpu's 'auto' streams a host lane only to hide XLA's
+        compile wall, and PyTorch runs eagerly with no such wall.
+        'compact' is single-stage; the rasters equal the JAX package's
+        two-stage form.  device: 'cuda' runs the CUDA kernels and raises
+        when no card is present; 'cpu' runs their plain PyTorch
+        versions."""
         self.configs = {**DEFAULT_CAMA_CONFIGS, **(configs or {})}
-        raster_kernel = raster_kernel or "fused"
-        if raster_kernel != "fused":
+        if raster_kernel is None:  # ctor arg > config key > default
+            raster_kernel = self.configs.get("raster_kernel") or "fused"
+        if raster_kernel not in RASTER_KERNELS:
             raise ValueError(
-                f"unknown raster_kernel {raster_kernel!r}; cama_tpu_torch "
-                "serves 'fused' only")
+                f"unknown raster_kernel {raster_kernel!r}; expected one of "
+                f"{', '.join(map(repr, RASTER_KERNELS))}")
+        self.raster_kernel = "fused" if raster_kernel == "auto" else raster_kernel
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -202,7 +277,7 @@ class ClipPipeline:
         self._fcache_lock = threading.Lock()
         self._fm = {}
         self._dev = {}
-        self._fused_k = {}
+        self._k = {}
         self._crop_lo, self._crop_hi = crop_bounds()
         self._color_tables = {
             src: build_color_table(self.scene.flat[src].class_names)
@@ -246,21 +321,36 @@ class ClipPipeline:
     # ---------------- device passes ----------------
 
     def overlay_mode(self, source):
-        """('raster', k_cap): the union list size for the fused kernel, from
-        the kernel's own counting passes over every chunk (the power of two
-        >= the largest count, at least 1024, at most P)."""
-        if source not in self._fused_k:
+        """('raster', k): the list size of this pipeline's lane, from a
+        counting pass over every chunk with the lane's own projection — the
+        fused kernel's union count, or the largest per-camera deduped count
+        of the 'pallas' kernel or the plain projection — rounded to the
+        power of two >= the largest count, at least 1024, at most P.  The
+        'scatter' lane has no list: every kept point scatters, so k = P."""
+        if source not in self._k:
             st = self.scene_tensors(source)
+            P = int(st.points.shape[0])
             h, w = self.scene.output_size
+            lane = self.raster_kernel
+            if lane == "scatter":
+                self._k[source] = P
+                return "raster", P
             top = 0
             for s in range(0, st.A.shape[0], self.chunk):
                 sl = slice(s, s + self.chunk)
-                cnt = count_union(st.points, st.valid, st.cls, st.A[sl],
-                                  st.B[sl], st.frame_valid[sl], w, h,
-                                  self._crop_lo, self._crop_hi)
+                if lane == "fused":
+                    cnt = count_union(st.points, st.valid, st.cls, st.A[sl],
+                                      st.B[sl], st.frame_valid[sl], w, h,
+                                      self._crop_lo, self._crop_hi)
+                else:
+                    vu, keep = _LANE_PROJECTIONS[lane](
+                        st.points, st.valid, st.A[sl], st.B[sl],
+                        st.frame_valid[sl], w, h, self._crop_lo,
+                        self._crop_hi)
+                    cnt = effective_counts(vu, keep, st.cls, w, h)
                 top = max(top, int(cnt.max()))
-            self._fused_k[source] = _pow2_cap(top, int(st.points.shape[0]))
-        return "raster", self._fused_k[source]
+            self._k[source] = _pow2_cap(top, P)
+        return "raster", self._k[source]
 
     def _use_2bit(self, source):
         fp = self.scene.flat[source]
@@ -273,7 +363,7 @@ class ClipPipeline:
         chunk's rasters and counts are copied into pinned host buffers with
         non_blocking copies, one CUDA event per chunk marks their arrival,
         and at most `max_in_flight` chunks are pending at once.  Every
-        frame's union count is checked against k_cap when its chunk is
+        frame's list count is checked against the lane's k when its chunk is
         drained (an overflowed list raises).
 
         unpack=False hands the 2-bit packed [C, H, ceil(W/4)] format
@@ -283,15 +373,18 @@ class ClipPipeline:
         st = self.scene_tensors(source)
         use_2bit = self._use_2bit(source)
         h, w = self.scene.output_size
-        _, k_cap = self.overlay_mode(source)
+        _, k = self.overlay_mode(source)
+        lane = self.raster_kernel
         on_card = self.device.type == "cuda"
 
         def dispatch(sl):
             with self.timers.phase("device_dispatch"):
-                rasters, count = _overlay_chunk_fused(
-                    st.points, st.valid, st.cls, st.A[sl], st.B[sl],
-                    st.frame_valid[sl], self._crop_lo, self._crop_hi, w, h,
-                    k_cap, use_2bit)
+                args = (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                        st.frame_valid[sl], self._crop_lo, self._crop_hi, w, h)
+                if lane == "scatter":
+                    rasters, count = _overlay_chunk(*args, use_2bit)
+                else:
+                    rasters, count = _LIST_PROGRAMS[lane](*args, k, use_2bit)
                 if not on_card:
                     return rasters, count, None
                 r_host = torch.empty(rasters.shape, dtype=rasters.dtype,
@@ -310,20 +403,20 @@ class ClipPipeline:
                 if done is not None:
                     done.synchronize()
                 count = count.numpy()
-                if (count > k_cap).any():
+                if (count > k).any():
                     f = int(np.argmax(count))
                     raise RuntimeError(
-                        f"{source}: frame {s + f} keeps {int(count[f])} union "
-                        f"rows, over the fused list size k_cap={k_cap}")
+                        f"{source}: frame {s + f} keeps {int(count[f])} list "
+                        f"rows, over the {lane} list size k={k}")
                 rasters = rasters.numpy()
                 if unpack and rasters.shape[-1] != w:
                     rasters = unpack_cls_2bit(rasters, w)  # [chunk, C, H, W]
             out = []
-            for k in range(rasters.shape[0]):
-                fidx = s + k
+            for j in range(rasters.shape[0]):
+                fidx = s + j
                 if fidx >= F or not fm.frame_valid[fidx]:
                     continue
-                out.append((int(fm.frame_indices[fidx]), rasters[k]))
+                out.append((int(fm.frame_indices[fidx]), rasters[j]))
             return out
 
         pending = []

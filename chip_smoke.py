@@ -8,21 +8,28 @@ non-zero (also when no CUDA device is present, or when the package is not
 next to this script):
 
   1. environment: the card, its power limit (nvidia-smi), TF32 off, and the
-     nvcc build of the fused kernel from cama_tpu_torch/csrc;
-  2. kernel vs plain version on the card: the compute-bound fixture scene
-     (17 frames, ~253,600 points) tiled to 1,048,576 points, one chunk of 16
-     frames, and a tile-boundary case — count and every live row identical;
-  3. the main path: ClipPipeline(device='cuda').iter_overlay_rasters over
-     every frame of the 'cama' source, each raster composited into the 3x2
-     mosaic by the native compositor over a 6-thread pool (as write_videos
-     does) onto black base images; launch counts read around that run;
-     rasters held against the float64 host lane (>= 0.99999 per frame) and
-     against the plain version's chunk program on the card (exact);
-  4. times: kernel and plain version ms/frame at 1,048,576 points (CUDA
-     events, median of 20 runs after warm-up); per-chunk device time of
-     each stage of the main path's device program; frames/s of the phase-3
-     stream over windows of at least MIN_WINDOW_S seconds, with the host
-     phase split and the device busy share (torch.profiler).
+     nvcc build of every kernel from cama_tpu_torch/csrc (one nvcc per
+     source, in parallel), with ptxas' register and shared-memory report;
+  2. kernels vs their plain versions on the card, all exact:
+     fused_compact_project and project_frame_pallas on the compute-bound
+     fixture scene (17 frames, ~253,600 points) tiled to 1,048,576 points,
+     one chunk of 16 frames, and on a tile-boundary case; paint_max at the
+     TPU probe's shape and on one chunk's survivor lists of the 'pallas'
+     lane (48 rasters of 540 x 960);
+  3. the main paths, each with every launch count set to 0 just before it
+     and read just after: ClipPipeline(device='cuda').iter_overlay_rasters
+     over every frame of the 'cama' source, raster_kernel 'fused' and then
+     'pallas', each raster composited into the 3x2 mosaic by the native
+     compositor over a 6-thread pool (as write_videos does) onto black base
+     images; rasters held against the float64 host lane (>= 0.99999 per
+     frame), against the plain versions' programs on the card and against
+     each other (exact); and the kernel-strategy tool
+     (cama_tpu_torch.tools.bench_kernels), the path of paint_max;
+  4. times: kernels and plain versions (CUDA events, median of 20 runs after
+     warm-up); per-chunk device time of each stage of both lanes' device
+     programs; frames/s of the streams over windows of at least
+     MIN_WINDOW_S seconds, with the host phase split and the device busy
+     share (torch.profiler).
 
 The last two lines are the kernels' JSON record and the result line.
 Needs numpy and torch with CUDA, nvcc and g++; no cv2, yaml or ffmpeg.
@@ -33,7 +40,6 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -44,23 +50,18 @@ N_POINTS = 1_048_576   # tiled point count of the kernel phase
 CHUNK_TILED = 16       # frames per chunk of the kernel phase
 CHUNK = 8              # ClipPipeline's default frame chunk (main path)
 AGREE_MIN = 0.99999    # per-frame raster agreement vs the host f64 lane
-TIMED_RUNS = 20
 MIN_WINDOW_S = 1.0     # each timed stream window loops the clip this long
 WINDOWS = 3
 POOL_THREADS = 6       # write_videos' default compositor pool
 DEVICE = "cuda"
+# mangled-name fragments of the kernels -> the names ptxas' report is shown by
+KERNEL_SYMBOLS = {"fc_passILb0": "fc_pass<false>", "fc_passILb1": "fc_pass<true>",
+                  "fc_scan": "fc_scan", "pp_kernel": "pp_kernel",
+                  "paint_kernel": "paint_kernel"}
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def wide_clip():
@@ -141,25 +142,6 @@ def compare_project(args, geo, k_cap):
     return err, err_count, int(cnt_r.min()), int(cnt_r.max())
 
 
-def time_ms(fn, runs=TIMED_RUNS):
-    """Median CUDA-event time of fn() over `runs` calls after warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def run_stream(pipe, source, pool, rasters=None, min_seconds=0.0):
     """The main path as write_videos runs it, less decode and encode:
     iter_overlay_rasters, then the native mosaic compositor over `pool`
@@ -208,6 +190,84 @@ def device_busy_ms(fn):
     return us / 1000.0 if us > 0 else None
 
 
+def compare_projection(args, geo):
+    """project_frame_pallas vs its plain version on the same card tensors:
+    (max |vu diff| over every entry, keep entries that differ, kept)."""
+    import torch
+
+    from cama_tpu_torch.ops import pallas_project as pp
+
+    vu_k, keep_k = pp.project_frame_pallas(*args, *geo)
+    vu_r, keep_r = pp.project_frame_pallas_ref(*args, *geo)
+    torch.cuda.synchronize()
+    return (float((vu_k - vu_r).abs().max()), int((keep_k != keep_r).sum()),
+            int(keep_r.sum()))
+
+
+def compare_paint(py, px, prio, height, width):
+    """paint_max vs its plain version: (max |diff|, painted pixels)."""
+    import torch
+
+    from cama_tpu_torch.ops import paint
+
+    got = paint.paint_max(py, px, prio, height, width)
+    ref = paint.paint_max_ref(py, px, prio, height, width)
+    torch.cuda.synchronize()
+    return int((got - ref).abs().max()), int((ref >= 0).sum())
+
+
+def reset_all_launches():
+    from cama_tpu_torch.ops import fused_compact, paint, pallas_project
+
+    for mod in (fused_compact, pallas_project, paint):
+        mod.reset_launches()
+
+
+def all_launches():
+    from cama_tpu_torch.ops import fused_compact, paint, pallas_project
+
+    return {**fused_compact.LAUNCHES, **pallas_project.LAUNCHES,
+            **paint.LAUNCHES}
+
+
+def chunk_rasters(program, pipe, source, *extra):
+    """{image_idx: uint8 raster [C, H, W]} of a chunk program of
+    cama_tpu_torch.pipeline run over every chunk of `source` on the
+    pipeline's device (unpacked rasters, no 2-bit packing)."""
+    st = pipe.scene_tensors(source)
+    fm, _, _, _, F = pipe._chunked_AB(source)
+    h, w = pipe.scene.output_size
+    out = {}
+    for s in range(0, st.A.shape[0], CHUNK):
+        sl = slice(s, s + CHUNK)
+        rasters, _ = program(st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                             st.frame_valid[sl], pipe._crop_lo, pipe._crop_hi,
+                             w, h, *extra, False)
+        rasters = rasters.cpu().numpy()
+        for j in range(rasters.shape[0]):
+            if s + j < F and fm.frame_valid[s + j]:
+                out[int(fm.frame_indices[s + j])] = rasters[j]
+    return out
+
+
+def pixels_apart(a, b):
+    if set(a) != set(b):
+        raise RuntimeError("the two streams yield different frames")
+    return sum(int((a[i] != b[i]).sum()) for i in a)
+
+
+def stream_rates(pipe, source, pool, windows):
+    """Median frames/s over `windows` warm windows of >= MIN_WINDOW_S, the
+    rates, and the host phase split of the last window (ms/frame)."""
+    rates, split = [], {}
+    for _ in range(windows):
+        pipe.timers = type(pipe.timers)()
+        n, secs, _ = run_stream(pipe, source, pool, min_seconds=MIN_WINDOW_S)
+        rates.append(n / secs)
+        split = {k: 1000.0 * v / n for k, v in pipe.timers.total.items()}
+    return statistics.median(rates), rates, split
+
+
 def main():
     import numpy as np
     import torch
@@ -218,17 +278,22 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from cama_tpu_torch import _build, native
+        from cama_tpu_torch import pipeline as tp
         from cama_tpu_torch.ops import fused_compact as fc
-        from cama_tpu_torch.ops.raster import pack_cls_2bit, packed_to_cls
-        from cama_tpu_torch.pipeline import (ClipPipeline, _overlay_chunk_fused,
-                                             _pow2_cap)
+        from cama_tpu_torch.ops import paint
+        from cama_tpu_torch.ops import pallas_project as pp
+        from cama_tpu_torch.ops.raster import (compact_points, pack_cls_2bit,
+                                               packed_to_cls,
+                                               rasterize_from_compact)
+        from cama_tpu_torch.tools import bench_kernels as bk
     except ImportError as e:
         sys.exit(f"chip_smoke: cama_tpu_torch not importable next to "
                  f"{__file__}: {e}")
+    ClipPipeline, time_ms = tp.ClipPipeline, bk.time_ms
 
     # ---- phase 1: environment + build ----
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = bk.card_line()
     say("env", f"torch {torch.__version__} cuda {torch.version.cuda} | "
                f"device {name} | nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,65 +304,131 @@ def main():
     _build.load()
     built = ("built in %.2f s" % _build.BUILD_SECONDS
              if _build.BUILD_SECONDS is not None else "loaded (already built)")
-    say("build", f"{os.path.relpath(_build.library_path(), ROOT)} {built}; "
-                 f"load {time.perf_counter() - t0:.2f} s; "
+    srcs = ", ".join(os.path.relpath(p, ROOT) for p in _build.sources())
+    say("build", f"{os.path.relpath(_build.library_path(), ROOT)} from "
+                 f"{srcs} {built}; load {time.perf_counter() - t0:.2f} s; "
                  f"nvcc {' '.join(_build.NVCC_FLAGS)}")
+    kernel = None
+    for line in _build.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((short for sym, short in KERNEL_SYMBOLS.items()
+                           if sym in line), line)
+        elif "Used " in line and kernel:
+            say("build", f"ptxas {kernel}: {line.split(':', 1)[1].strip()}")
     t0 = time.perf_counter()
     composer = "native" if native.available() else "NumPy fallback"
     say("build", f"host mosaic compositor: {composer} "
                  f"({time.perf_counter() - t0:.2f} s)")
 
-    # ---- phase 2: kernel vs plain version ----
+    # ---- phase 2: kernels vs plain versions ----
     dev = torch.device(DEVICE)
     clip = wide_clip()
     probe = ClipPipeline(clip_path=clip, chunk=CHUNK, device=dev)
     tiled = tiled_inputs(probe, dev)
     h, w = probe.scene.output_size
     geo = (w, h, probe._crop_lo, probe._crop_hi)
-    k_tiled = _pow2_cap(int(fc.count_union(*tiled, *geo).max()), N_POINTS)
+    k_tiled = tp._pow2_cap(int(fc.count_union(*tiled, *geo).max()), N_POINTS)
     err_big, err_big_c, lo_c, hi_c = compare_project(tiled, geo, k_tiled)
     tb_args, tb_geo = tile_boundary_inputs(dev)
     err_tb, err_tb_c, tb_n, _ = compare_project(tb_args, tb_geo, 4096)
     max_err = max(err_big, err_big_c, err_tb, err_tb_c)
-    say("kernel", f"{N_POINTS} points x {CHUNK_TILED} frames: union counts "
-                  f"{lo_c}..{hi_c}, k_cap {k_tiled}, max |kernel - plain| "
-                  f"{err_big} (counting passes {err_big_c}); tile-boundary "
-                  f"case: {tb_n} rows, max |diff| {err_tb} "
+    say("kernel", f"fused_compact_project, {N_POINTS} points x {CHUNK_TILED} "
+                  f"frames: union counts {lo_c}..{hi_c}, k_cap {k_tiled}, max "
+                  f"|kernel - plain| {err_big} (counting passes {err_big_c}); "
+                  f"tile-boundary case: {tb_n} rows, max |diff| {err_tb} "
                   f"(counting passes {err_tb_c}); tolerance 0 (exact)")
     if max_err != 0:
-        raise RuntimeError("CUDA kernel disagrees with its plain version")
+        raise RuntimeError("fused CUDA kernel disagrees with its plain version")
 
-    # ---- phase 3: the main path ----
+    proj_tiled = [tiled[i] for i in (0, 1, 3, 4, 5)]  # no class ids
+    vu_big, keep_big, kept_big = compare_projection(proj_tiled, geo)
+    # the boundary case cut to a point count that is no multiple of a block
+    tb_proj = [tb_args[0][:-37], tb_args[1][:-37], *tb_args[3:]]
+    vu_tb, keep_tb, kept_tb = compare_projection(tb_proj, tb_geo)
+    pp_err = max(vu_big, keep_big, vu_tb, keep_tb)
+    say("kernel", f"project_frame_pallas, {N_POINTS} points x {CHUNK_TILED} "
+                  f"frames: {kept_big} kept, max |vu kernel - plain| {vu_big}, "
+                  f"keep entries differing {keep_big}; tile-boundary case at "
+                  f"{tb_proj[0].shape[0]} points: {kept_tb} kept, max |vu "
+                  f"diff| {vu_tb}, keep differing {keep_tb}; tolerance 0")
+    if pp_err != 0:
+        raise RuntimeError("projection CUDA kernel disagrees with its plain "
+                           "version")
+
+    probe_pts = bk.probe_inputs(dev)
+    err_probe, painted_probe = compare_paint(*probe_pts, bk.H, bk.WPAD)
+    # the main path's shape: one chunk's survivor lists of the 'pallas'
+    # lane, 8 frames x 6 cameras, painted into 540 x 960 rasters
+    pal = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="pallas",
+                       device=dev)
+    k_pal = pal.overlay_mode("cama")[1]
+    st = pal.scene_tensors("cama")
+    sl = slice(0, CHUNK)
+    proj_args = (st.points, st.valid, st.A[sl], st.B[sl], st.frame_valid[sl],
+                 w, h, pal._crop_lo, pal._crop_hi)
+    vu0, keep0 = pp.project_frame_pallas(*proj_args)
+    vals0, cnt0 = compact_points(vu0, keep0, st.cls, w, h, k_pal)
+    n_img = vals0.shape[0] * vals0.shape[1]
+    chunk_pts = bk.paint_inputs_from_list(vals0.reshape(n_img, k_pal), w)
+    err_chunk, painted_chunk = compare_paint(*chunk_pts, h, w)
+    paint_err = max(err_probe, err_chunk)
+    say("kernel", f"paint_max: probe {bk.N_PROBE} points into [{bk.H}, "
+                  f"{bk.WPAD}]: {painted_probe} pixels painted, max |kernel - "
+                  f"plain| {err_probe}; one 'pallas' chunk's survivor lists "
+                  f"({int(cnt0.sum())} points, k {k_pal}) into [{n_img}, {h}, "
+                  f"{w}]: {painted_chunk} painted, max |diff| {err_chunk}; "
+                  f"tolerance 0")
+    if paint_err != 0:
+        raise RuntimeError("paint CUDA kernel disagrees with its plain version")
+
+    # ---- phase 3: the main paths ----
     pool = ThreadPoolExecutor(max_workers=POOL_THREADS)
-    fc.reset_launches()
-    pipe = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="fused",
-                        device=dev)
-    streamed = {}
-    n_frames, secs, mosaic = run_stream(pipe, "cama", pool, streamed)
-    launches = dict(fc.LAUNCHES)
-    n_chunks = pipe.scene_tensors("cama").A.shape[0] // CHUNK
-    k_cap = pipe.overlay_mode("cama")[1]
-    say("main", f"{n_frames} frames of 'cama' ({int(pipe.scene.flat['cama'].valid.sum())} "
-                f"points, chunk {CHUNK}, k_cap {k_cap}, {POOL_THREADS} "
-                f"compositor threads) in {secs:.3f} s, counting pass "
-                f"included; launches {launches}, expected {n_chunks} each "
-                f"(counting pass + device program)")
-    if launches != {"fused_compact_project": n_chunks, "count_union": n_chunks}:
-        raise RuntimeError(f"main path launches {launches} != {n_chunks} chunks")
-    if mosaic.shape != (2 * h, 3 * w, 3) or n_frames < 2:
-        raise RuntimeError(f"bad stream: {n_frames} frames, {mosaic.shape}")
+    n_chunks = st.A.shape[0] // CHUNK
+    paths = {}
+    for lane in ("fused", "pallas"):
+        reset_all_launches()
+        pipe = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel=lane,
+                            device=dev)
+        streamed = {}
+        n_frames, secs, mosaic = run_stream(pipe, "cama", pool, streamed)
+        launches = all_launches()
+        paths[lane] = (pipe, streamed, n_frames, secs, launches)
+        k = pipe.overlay_mode("cama")[1]
+        say("main", f"'{lane}' lane: {n_frames} frames of 'cama' "
+                    f"({int(pipe.scene.flat['cama'].valid.sum())} points, "
+                    f"chunk {CHUNK}, k {k}, {POOL_THREADS} compositor threads) "
+                    f"in {secs:.3f} s, counting pass included; launches "
+                    f"{launches}")
+        if mosaic.shape != (2 * h, 3 * w, 3) or n_frames < 2:
+            raise RuntimeError(f"bad stream: {n_frames} frames, {mosaic.shape}")
+    expect = {"fused": {"fused_compact_project": n_chunks,
+                        "count_union": n_chunks, "project_frame_pallas": 0,
+                        "paint_max": 0},
+              "pallas": {"fused_compact_project": 0, "count_union": 0,
+                         "project_frame_pallas": 2 * n_chunks,
+                         "paint_max": 0}}
+    for lane, want in expect.items():
+        if paths[lane][4] != want:
+            raise RuntimeError(f"'{lane}' launches {paths[lane][4]} != {want} "
+                               f"({n_chunks} chunks: counting pass + serve)")
+
+    pipe, streamed = paths["fused"][:2]
     host = dict(pipe.iter_overlay_rasters_host("cama"))
-    if set(host) != set(streamed):
-        raise RuntimeError("device and host lanes yield different frames")
-    worst = 1.0
-    for idx, ref in host.items():
-        got = streamed[idx]
-        if got.shape != ref.shape or got.dtype != np.uint8 or got.max() > 3:
-            raise RuntimeError(f"frame {idx}: raster {got.shape} {got.dtype}")
-        if not got.any():
-            raise RuntimeError(f"frame {idx}: nothing painted")
-        worst = min(worst, float((got == ref).mean()))
-    # the device program with the plain version as its front end, on the card
+    worst = {}
+    for lane in ("fused", "pallas"):
+        got_all = paths[lane][1]
+        if set(host) != set(got_all):
+            raise RuntimeError(f"'{lane}' and host lanes yield different frames")
+        worst[lane] = 1.0
+        for idx, ref in host.items():
+            got = got_all[idx]
+            if got.shape != ref.shape or got.dtype != np.uint8 or got.max() > 3:
+                raise RuntimeError(f"frame {idx}: raster {got.shape} {got.dtype}")
+            if not got.any():
+                raise RuntimeError(f"frame {idx}: nothing painted")
+            worst[lane] = min(worst[lane], float((got == ref).mean()))
+    # the fused device program with the plain version as its front end
+    k_cap = pipe.overlay_mode("cama")[1]
     st = pipe.scene_tensors("cama")
     fm, _, _, _, F = pipe._chunked_AB("cama")
     mismatched = 0
@@ -307,30 +438,74 @@ def main():
             st.points, st.valid, st.cls, st.A[sl], st.B[sl],
             st.frame_valid[sl], w, h, pipe._crop_lo, pipe._crop_hi, k_cap)
         ref = packed_to_cls(fc.rasterize_from_union(vals, count, w, h)).cpu().numpy()
-        for k in range(ref.shape[0]):
-            fidx = s + k
+        for j in range(ref.shape[0]):
+            fidx = s + j
             if fidx < F and fm.frame_valid[fidx]:
-                mismatched += int((ref[k] != streamed[int(fm.frame_indices[fidx])]).sum())
-    say("main", f"agreement vs host float64 lane: min {worst:.10f} per frame "
-                f"(>= {AGREE_MIN}); pixels differing from the plain-version "
-                f"device program on the card: {mismatched} (must be 0)")
-    if worst < AGREE_MIN or mismatched:
+                mismatched += int((ref[j] != streamed[int(fm.frame_indices[fidx])]).sum())
+    say("main", f"'fused' agreement vs host float64 lane: min "
+                f"{worst['fused']:.10f} per frame (>= {AGREE_MIN}); pixels "
+                f"differing from the plain-version device program on the "
+                f"card: {mismatched} (must be 0)")
+    # the 'pallas' lane with project_frame_pallas_ref (= project_frames) as
+    # its front end is the 'compact' lane's program; 'scatter' paints every
+    # kept point of the same projection
+    pal, pal_streamed = paths["pallas"][:2]
+    k_pal = pal.overlay_mode("cama")[1]
+    apart = {
+        "plain-projection program ('compact')": pixels_apart(
+            pal_streamed, chunk_rasters(tp._overlay_chunk_compact, pal,
+                                        "cama", k_pal)),
+        "'scatter' program": pixels_apart(
+            pal_streamed, chunk_rasters(tp._overlay_chunk, pal, "cama")),
+        "'fused' lane": pixels_apart(pal_streamed, streamed)}
+    say("main", f"'pallas' agreement vs host float64 lane: min "
+                f"{worst['pallas']:.10f} per frame (>= {AGREE_MIN}); pixels "
+                "differing on the card from "
+                + ", ".join(f"the {k} {v}" for k, v in apart.items())
+                + " (each must be 0)")
+    if min(worst.values()) < AGREE_MIN or mismatched or any(apart.values()):
         raise RuntimeError("main-path rasters out of contract")
 
+    # the paint kernel's path: the kernel-strategy tool
+    reset_all_launches()
+    bench = bk.run(dev)
+    bench_launches = all_launches()
+    say("bench", f"cama_tpu_torch.tools.bench_kernels: {json.dumps(bench)}")
+    say("bench", f"launches {bench_launches}")
+    if bench_launches["paint_max"] < 1 or bench["paint"]["max_abs_err"] != 0:
+        raise RuntimeError("bench_kernels did not run the paint kernel right")
+    if not (bench["projection"]["keep_equal"]
+            and bench["projection"]["vu_max_diff_px"] == 0
+            and bench["compaction_6cam"]["all_equal"]):
+        raise RuntimeError("bench_kernels' comparisons disagree")
+
     # ---- phase 4: times ----
-    card = card_line()
+    card = bk.card_line()
+    per = 1.0 / CHUNK_TILED
     ms_k = time_ms(lambda: fc.fused_compact_project(*tiled, *geo, k_tiled))
     ms_r = time_ms(lambda: fc.fused_compact_project_ref(*tiled, *geo, k_tiled))
     ms_ck = time_ms(lambda: fc.count_union(*tiled, *geo))
     ms_cr = time_ms(lambda: fc.count_union_ref(*tiled, *geo))
-    per = 1.0 / CHUNK_TILED
     say("time", f"fused_compact_project at {N_POINTS} points: kernel "
                 f"{ms_k * per:.4f} ms/frame, plain {ms_r * per:.4f} ms/frame "
-                f"(chunk of {CHUNK_TILED}, median of {TIMED_RUNS}); its "
+                f"(chunk of {CHUNK_TILED}, median of {bk.RUNS}); its "
                 f"counting passes alone (count_union): kernel "
                 f"{ms_ck * per:.4f}, plain {ms_cr * per:.4f} ms/frame | {card}")
+    ms_pk = time_ms(lambda: pp.project_frame_pallas(*proj_tiled, *geo))
+    ms_pr = time_ms(lambda: pp.project_frame_pallas_ref(*proj_tiled, *geo))
+    say("time", f"project_frame_pallas at {N_POINTS} points: kernel "
+                f"{ms_pk * per:.4f} ms/frame, plain {ms_pr * per:.4f} ms/frame "
+                f"(chunk of {CHUNK_TILED}, median of {bk.RUNS}) | {card}")
+    ms_ak = time_ms(lambda: paint.paint_max(*chunk_pts, h, w))
+    ms_ar = time_ms(lambda: paint.paint_max_ref(*chunk_pts, h, w))
+    say("time", f"paint_max, one 'pallas' chunk's survivor lists into "
+                f"[{n_img}, {h}, {w}]: kernel {ms_ak:.4f} ms, plain "
+                f"(scatter_reduce_) {ms_ar:.4f} ms; probe: kernel "
+                f"{bench['paint']['kernel_ns_per_point']:.4f} ns/point, plain "
+                f"{bench['paint']['scatter_reduce_ns_per_point']:.4f} "
+                f"ns/point | {card}")
 
-    # the main path's device program, stage by stage, one chunk of CHUNK
+    # each lane's device program, stage by stage, one chunk of CHUNK
     sl = slice(0, CHUNK)
     chunk_args = (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
                   st.frame_valid[sl])
@@ -345,35 +520,55 @@ def main():
             lambda: fc.rasterize_from_union(vals, count, w, h)),
         "packed_to_cls": time_ms(lambda: packed_to_cls(packed)),
         "pack_cls_2bit": time_ms(lambda: pack_cls_2bit(cls_r)),
-        "whole chunk": time_ms(lambda: _overlay_chunk_fused(
+        "whole chunk": time_ms(lambda: tp._overlay_chunk_fused(
             *chunk_args, pipe._crop_lo, pipe._crop_hi, w, h, k_cap, True)),
     }
-    say("time", "main-path device program, ms per chunk of "
+    say("time", "'fused' device program, ms per chunk of "
                 f"{CHUNK} frames at {st.points.shape[0]} points (CUDA events, "
-                f"median of {TIMED_RUNS}): "
+                f"median of {bk.RUNS}): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
                 + f" | {card}")
+    packed0 = rasterize_from_compact(vals0, w, h)
+    pal_stages = {
+        "project_frame_pallas": time_ms(
+            lambda: pp.project_frame_pallas(*proj_args)),
+        "compact_points": time_ms(
+            lambda: compact_points(vu0, keep0, st.cls, w, h, k_pal)),
+        "rasterize_from_compact": time_ms(
+            lambda: rasterize_from_compact(vals0, w, h)),
+        "packing (packed_to_cls + pack_cls_2bit)": time_ms(
+            lambda: pack_cls_2bit(packed_to_cls(packed0))),
+        "whole chunk": time_ms(lambda: tp._overlay_chunk_pallas(
+            *chunk_args, pal._crop_lo, pal._crop_hi, w, h, k_pal, True)),
+    }
+    say("time", "'pallas' device program, ms per chunk of "
+                f"{CHUNK} frames at {st.points.shape[0]} points (CUDA events, "
+                f"median of {bk.RUNS}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in pal_stages.items())
+                + f" | {card}")
 
-    rates, split = [], {}
-    for _ in range(WINDOWS):
-        pipe.timers = type(pipe.timers)()
-        n2, secs2, _ = run_stream(pipe, "cama", pool, min_seconds=MIN_WINDOW_S)
-        rates.append(n2 / secs2)
-        split = {k: 1000.0 * v / n2 for k, v in pipe.timers.total.items()}
+    rate, rates, split = stream_rates(pipe, "cama", pool, WINDOWS)
+    n_frames, secs = paths["fused"][2:4]
     busy = device_busy_ms(lambda: run_stream(pipe, "cama", pool))
-    rate = statistics.median(rates)
     busy_line = ("device busy share not measured (no device time in the "
                  "trace)" if busy is None else
                  f"device busy {busy / n_frames:.4f} ms/frame (torch.profiler, "
                  f"one pass) = {100.0 * busy / n_frames * rate / 1000.0:.2f} % "
                  f"of the median window's wall time")
-    say("time", f"main-path stream, warm, windows of >= {MIN_WINDOW_S} s: "
+    say("time", f"'fused' stream, warm, windows of >= {MIN_WINDOW_S} s: "
                 f"{', '.join(f'{r:.2f}' for r in rates)} frames/s (median "
                 f"{rate:.2f}); first run {n_frames / secs:.2f} frames/s "
                 f"(counting pass and first-use allocations) | {card}")
     say("time", "host phase split of the last window, ms/frame: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
                 + f" | {busy_line} | {card}")
+    p_rate, _, p_split = stream_rates(pal, "cama", pool, 1)
+    p_frames, p_secs = paths["pallas"][2:4]
+    say("time", f"'pallas' stream, warm, one window of >= {MIN_WINDOW_S} s: "
+                f"{p_rate:.2f} frames/s; first run {p_frames / p_secs:.2f} "
+                "frames/s; host phase split, ms/frame: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in p_split.items())
+                + f" | {card}")
     pool.shutdown()
 
     jax_mods = sorted(m for m in sys.modules if sys.modules[m] is not None
@@ -385,19 +580,33 @@ def main():
         raise RuntimeError(f"the port imported jax: {jax_mods[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "fused_compact_project", "route": "cuda",
-        "source": "cama_tpu_torch/csrc/fused_compact.cu",
-        "replaces": "cama_tpu/ops/fused_compact.py:241",
-        "launches": launches["fused_compact_project"],
-        "max_abs_err": max(err_big, err_tb),
-        "ms": ms_k * per, "plain_ms": ms_r * per,
-        # the same kernel's counting passes (count + scan), run alone by the
-        # k_cap sizing of the main path
-        "count_launches": launches["count_union"],
-        "count_max_abs_err": max(err_big_c, err_tb_c),
-        "count_ms": ms_ck * per, "count_plain_ms": ms_cr * per}]}),
-        flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "fused_compact_project", "route": "cuda",
+         "source": "cama_tpu_torch/csrc/fused_compact.cu",
+         "replaces": "cama_tpu/ops/fused_compact.py:241",
+         "launches": paths["fused"][4]["fused_compact_project"],
+         "max_abs_err": max(err_big, err_tb),
+         "ms": ms_k * per, "plain_ms": ms_r * per,
+         # the same kernel's counting passes (count + scan), run alone by
+         # the k_cap sizing of the main path
+         "count_launches": paths["fused"][4]["count_union"],
+         "count_max_abs_err": max(err_big_c, err_tb_c),
+         "count_ms": ms_ck * per, "count_plain_ms": ms_cr * per},
+        {"name": "project_frame_pallas", "route": "cuda",
+         "source": "cama_tpu_torch/csrc/pallas_project.cu",
+         "replaces": "cama_tpu/ops/pallas_project.py:82",
+         "launches": paths["pallas"][4]["project_frame_pallas"],
+         "max_abs_err": pp_err, "ms": ms_pk * per, "plain_ms": ms_pr * per},
+        # its path is the kernel-strategy tool; ms at the main path's shape
+        # (one chunk's survivor lists), the probe's time per point beside it
+        {"name": "paint_max", "route": "cuda",
+         "source": "cama_tpu_torch/csrc/paint_max.cu",
+         "replaces": "tools/bench_pallas.py:148",
+         "launches": bench_launches["paint_max"],
+         "max_abs_err": paint_err, "ms": ms_ak, "plain_ms": ms_ar,
+         "probe_ns_per_point": bench["paint"]["kernel_ns_per_point"],
+         "probe_plain_ns_per_point":
+             bench["paint"]["scatter_reduce_ns_per_point"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

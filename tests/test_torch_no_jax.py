@@ -13,14 +13,18 @@ _CHILD = textwrap.dedent("""
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
     import numpy as np
     import cama_tpu_torch.cli
+    import cama_tpu_torch.ops.paint
     import cama_tpu_torch.pipeline as tp
+    import cama_tpu_torch.tools.bench_kernels
     from cama_tpu_torch.io.fixture import make_fixture_clip
 
     clip = make_fixture_clip(tempfile.mkdtemp(), n_frames=3,
                              with_images=False)
-    pipe = tp.ClipPipeline(clip_path=clip, chunk=2, device="cpu")
-    rasters = dict(pipe.iter_overlay_rasters("cama"))
-    assert len(rasters) >= 2 and all(r.any() for r in rasters.values())
+    for lane in tp.RASTER_KERNELS:
+        pipe = tp.ClipPipeline(clip_path=clip, chunk=2, raster_kernel=lane,
+                               device="cpu")
+        rasters = dict(pipe.iter_overlay_rasters("cama"))
+        assert len(rasters) >= 2 and all(r.any() for r in rasters.values())
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -43,14 +47,15 @@ _CHILD_INSTALLED = textwrap.dedent("""
 
     root = tempfile.mkdtemp()
     make_fixture_clip(os.path.join(root, "c"), scene_name="s", n_frames=3)
-    cfg = os.path.join(root, "config.yaml")
-    with open(cfg, "w") as f:
-        yaml.safe_dump({"converted_dataroot": os.path.join(root, "c"),
-                        "scene_names": ["s"],
-                        "output_video_dir": os.path.join(root, "v")}, f)
-    assert main(["--config", cfg, "--device", "cpu"]) == 0
-    assert sorted(os.listdir(os.path.join(root, "v"))) == [
-        "s_cama.mp4", "s_nuScenes.mp4"]
+    for lane in (None, "pallas"):  # the default, then a named lane
+        cfg = os.path.join(root, "config.yaml")
+        out = os.path.join(root, f"v_{lane}")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({"converted_dataroot": os.path.join(root, "c"),
+                            "scene_names": ["s"], "output_video_dir": out,
+                            "cama_configs": {"raster_kernel": lane}}, f)
+        assert main(["--config", cfg, "--device", "cpu"]) == 0
+        assert sorted(os.listdir(out)) == ["s_cama.mp4", "s_nuScenes.mp4"]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib") or m.startswith(
                         ("cama_tpu.io", "cama_tpu.se3", "cama_tpu.ops.geometry",
@@ -81,14 +86,17 @@ def test_port_never_loads_installed_jax(tmp_path):
 
 def test_port_sources_never_import_jax():
     pkg = os.path.join(REPO, "cama_tpu_torch")
-    offenders = []
+    offenders, scanned = [], set()
     for root, _, files in os.walk(pkg):
         for name in files:
             if name.endswith(".py"):
                 path = os.path.join(root, name)
+                scanned.add(os.path.relpath(path, pkg))
                 with open(path) as f:
                     for line in f:
                         s = line.strip()
                         if s.startswith(("import jax", "from jax")):
                             offenders.append(path)
     assert not offenders, offenders
+    assert {"pipeline.py", "ops/pallas_project.py", "ops/paint.py",
+            "tools/bench_kernels.py"} <= scanned, sorted(scanned)

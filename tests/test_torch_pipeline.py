@@ -148,7 +148,7 @@ def test_k_cap_from_own_count_and_overflow_raises(clip):
     mode, k = pipe.overlay_mode("cama")
     P = pipe.scene.flat["cama"].points.shape[0]
     assert mode == "raster" and 1024 <= k <= P and (k & (k - 1)) == 0
-    pipe._fused_k["cama"] = 64  # a list far too small for the scene
+    pipe._k["cama"] = 64  # a list far too small for the scene
     with pytest.raises(RuntimeError, match="over the fused list size"):
         list(pipe.iter_overlay_rasters("cama"))
     assert LAUNCHES == {"fused_compact_project": 0, "count_union": 0}
@@ -160,8 +160,22 @@ def test_cuda_device_without_card_raises(clip):
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.ClipPipeline(clip_path=clip, chunk=2)
     with pytest.raises(ValueError, match="raster_kernel"):
-        tpipe.ClipPipeline(clip_path=clip, raster_kernel="compact",
+        tpipe.ClipPipeline(clip_path=clip, raster_kernel="two_stage",
                            device="cpu")
+
+
+@pytest.mark.parametrize("ctor, config, lane", [
+    (None, None, "fused"),          # library default
+    (None, "pallas", "pallas"),     # config key
+    ("scatter", "pallas", "scatter"),  # constructor beats the config key
+    ("compact", None, "compact"),
+    ("auto", None, "fused"),        # 'auto' serves the fused lane
+    (None, "auto", "fused"),
+])
+def test_raster_kernel_precedence(port, ctor, config, lane):
+    pipe = tpipe.ClipPipeline({"raster_kernel": config}, scene=port.scene,
+                              raster_kernel=ctor, device="cpu")
+    assert pipe.raster_kernel == lane
 
 
 def test_cli_writes_both_videos(tmp_path, capsys):
@@ -182,3 +196,23 @@ def test_cli_writes_both_videos(tmp_path, capsys):
         f = tmp_path / "videos" / name
         assert f.exists() and f.stat().st_size > 0, name
     assert "2 frames ->" in out
+
+
+def test_cli_honours_raster_kernel(tmp_path, capsys):
+    """cama_configs.raster_kernel selects the lane in the CLI."""
+    from cama_tpu_torch.cli import main
+
+    make_fixture_clip(tmp_path / "converted", scene_name="scene-p",
+                      n_frames=3, with_lidar=False)
+    cfg = {"converted_dataroot": str(tmp_path / "converted"),
+           "scene_names": ["scene-p"],
+           "output_video_dir": str(tmp_path / "videos"),
+           "cama_configs": {"raster_kernel": "pallas"}}
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    assert main(["--config", str(path), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "on cpu, raster_kernel 'pallas'" in out
+    for name in ("scene-p_cama.mp4", "scene-p_nuScenes.mp4"):
+        f = tmp_path / "videos" / name
+        assert f.exists() and f.stat().st_size > 0, name
