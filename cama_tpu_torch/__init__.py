@@ -1,16 +1,20 @@
 """cama_tpu_torch — the CAMA overlay pipeline on PyTorch and CUDA (NVIDIA
 Hopper), beside the JAX package cama_tpu it is held against.
 
-It reuses cama_tpu's host modules that import no jax (lifting, profiling
-timers, native compositor, and the frame cache and video sink, loaded from
-their files by io.host_module), carries test-pinned copies of the host code
-whose cama_tpu modules pull jax in, and has its own device path:
+It imports nothing of cama_tpu: the host code it needs is carried as
+test-pinned copies (tests/test_torch_host.py), and the device path is its
+own:
 
   se3.py                SE(3) pose algebra and pose seek (NumPy float64)
+  profiling.py          per-phase wall-clock timers
+  native/               the C++ mosaic compositor (g++, ctypes)
   io/clip.py            clip reader
   io/scene.py           scene compiler, scene cache, scene tensors on the device
   io/fixture.py         synthetic fixture clip
+  io/frame_cache.py     per-clip store of undistorted frames
+  io/video.py           3x2 camera mosaic and video sink
   config.py             config schema of main.py
+  ops/lift.py           2-D label -> 3-D polyline lifting
   ops/geometry.py       frame matrices (host) and project_frames (device)
   ops/raster.py         compaction, scatter-max + plus-stencil dilation
                         rasterizers

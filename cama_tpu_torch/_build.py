@@ -94,11 +94,11 @@ def _compile(so):
 def _bind(lib):
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [i] * 5 + [fl] * 6  # P, F, C, W, H, crop lo xyz, crop hi xyz
-    lib.cama_fc_blocks.argtypes = [i]
-    lib.cama_fc_blocks.restype = i
-    lib.cama_fc_count.argtypes = [p] * 6 + geo + [p, p, p, p]
+    lib.cama_fc_scratch_words.argtypes = [i, i]
+    lib.cama_fc_scratch_words.restype = ctypes.c_longlong
+    lib.cama_fc_count.argtypes = [p] * 6 + geo + [p, p]
     lib.cama_fc_count.restype = i
-    lib.cama_fc_project.argtypes = [p] * 6 + geo + [i] + [p, p, p, p, p]
+    lib.cama_fc_project.argtypes = [p] * 6 + geo + [i] + [p, p, p, p]
     lib.cama_fc_project.restype = i
     lib.cama_pp_project.argtypes = [p] * 5 + geo + [p, p, p]
     lib.cama_pp_project.restype = i

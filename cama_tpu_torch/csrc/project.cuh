@@ -63,15 +63,23 @@ __device__ __forceinline__ bool in_crop(const float* mats, const Geo& g,
          cz >= g.lo2 && cz <= g.hi2;
 }
 
+// Camera c's rows (px, py, pz) of point (x, y, z), before the divide.
+__device__ __forceinline__ void cam_rows(const float* mats, int c, float x,
+                                         float y, float z, float& px,
+                                         float& py, float& pz) {
+  const float* b = mats + 12 + 12 * c;
+  px = row4(b + 0, x, y, z);
+  py = row4(b + 4, x, y, z);
+  pz = row4(b + 8, x, y, z);
+}
+
 // Camera c's pixel coordinates (u, v) of point (x, y, z); returns whether
 // the camera keeps it, given `ok` (crop, validity and frame validity).
 __device__ __forceinline__ bool project_cam(const float* mats, const Geo& g,
                                             int c, float x, float y, float z,
                                             bool ok, float& u, float& v) {
-  const float* b = mats + 12 + 12 * c;
-  const float px = row4(b + 0, x, y, z);
-  const float py = row4(b + 4, x, y, z);
-  const float pz = row4(b + 8, x, y, z);
+  float px, py, pz;
+  cam_rows(mats, c, x, y, z, px, py, pz);
   const bool mz = pz > 0.0f;
   const float sz = mz ? pz : 1.0f;
   u = __fdiv_rn(px, sz);

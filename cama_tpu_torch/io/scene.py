@@ -3,10 +3,10 @@
 A copy of cama_tpu/io/scene.py: the Scene type, the pose chains, the
 scene-cache format and key, and `compile_scene`.  The original imports the
 clip reader and SE(3) modules, which import jax whenever it is installed;
-this one takes them from cama_tpu_torch.io.clip and cama_tpu_torch.se3, and
-the point flattening takes MAX_CLS from this package, because
-cama_tpu.ops.lift.flatten_instances imports it from a module that needs
-jax.  The lifting itself (cama_tpu.ops.lift) is reused.  Both packages
+this one takes them from cama_tpu_torch.io.clip and cama_tpu_torch.se3, the
+lifting from cama_tpu_torch.ops.lift, and the point flattening
+(flatten_instances, a copy of cama_tpu.ops.lift's) takes MAX_CLS from this
+package's ops/raster.py.  Both packages
 compile identical scenes and read each other's `.cama_tpu/scene_cache.npz`
 (tests/test_torch_pipeline.py).
 """
@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cama_tpu.ops import lift
+from cama_tpu_torch.ops import lift
 from cama_tpu_torch.io.clip import ClipReader
 from cama_tpu_torch.ops.raster import MAX_CLS
 from cama_tpu_torch.se3 import Trajectory, inv_se3

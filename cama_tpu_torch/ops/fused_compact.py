@@ -90,20 +90,20 @@ def count_union_ref(points, valid, cls, A, B, frame_valid, width, height,
 
 def _launch(entry, points, valid, cls, A, B, frame_valid, width, height,
             crop_lo, crop_hi, k_cap=None):
-    """Launch one CUDA entry point on the current stream; raises on any
-    launch error.  Returns (vals or None, count)."""
+    """Launch one CUDA entry point on the current stream: one memset of
+    its scratch (the look-back descriptors and the ticket) or of the counts,
+    then one kernel.  Raises on any launch error.  Returns (vals or None,
+    count)."""
     from cama_tpu_torch import _build
 
     P, F, C = check_frame_inputs(points, valid, A, B, frame_valid, cls)
     lib = _build.load()
     dev = points.device
     pts = points.contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    fv_u8 = frame_valid.to(torch.uint8).contiguous()
+    # bool is one byte: viewed as uint8, no cast kernel
+    valid_u8 = valid.contiguous().view(torch.uint8)
+    fv_u8 = frame_valid.contiguous().view(torch.uint8)
     cls_c, A_c, B_c = cls.contiguous(), A.contiguous(), B.contiguous()
-    nblk = lib.cama_fc_blocks(P)
-    block_cnt = torch.empty((F, nblk), dtype=torch.int32, device=dev)
-    block_off = torch.empty((F, nblk), dtype=torch.int32, device=dev)
     count = torch.empty(F, dtype=torch.int32, device=dev)
     geo = [P, F, C, int(width), int(height),
            *(float(v) for v in crop_lo), *(float(v) for v in crop_hi)]
@@ -111,15 +111,14 @@ def _launch(entry, points, valid, cls, A, B, frame_valid, width, height,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if entry == "count_union":
-            err = lib.cama_fc_count(*ins, *geo, block_cnt.data_ptr(),
-                                    block_off.data_ptr(), count.data_ptr(),
-                                    stream)
+            err = lib.cama_fc_count(*ins, *geo, count.data_ptr(), stream)
             vals = None
         else:
+            scratch = torch.empty(lib.cama_fc_scratch_words(P, F),
+                                  dtype=torch.int64, device=dev)
             vals = torch.empty((F, k_cap, C), dtype=torch.int32, device=dev)
             err = lib.cama_fc_project(*ins, *geo, int(k_cap),
-                                      block_cnt.data_ptr(),
-                                      block_off.data_ptr(), vals.data_ptr(),
+                                      scratch.data_ptr(), vals.data_ptr(),
                                       count.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
@@ -146,8 +145,8 @@ def fused_compact_project(points, valid, cls, A, B, frame_valid, width, height,
 
 def count_union(points, valid, cls, A, B, frame_valid, width, height,
                 crop_lo, crop_hi):
-    """Union survivor count [F] int32 per frame — the counting half of the
-    fused kernel (its passes 1 and 2), which sizes k_cap.  CUDA tensors
+    """Union survivor count [F] int32 per frame — the fused kernel's tile
+    body without the writes, which sizes k_cap.  CUDA tensors
     launch the kernel (or raise); CPU tensors run the plain version."""
     if route(points, "fused_compact") == "cpu":
         return count_union_ref(points, valid, cls, A, B, frame_valid, width,

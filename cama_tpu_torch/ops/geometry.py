@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cama_tpu.ops.lift import CROP_BOX
+from cama_tpu_torch.ops.lift import CROP_BOX
 from cama_tpu_torch.se3 import apply_seek, seek_indices
 
 MAX_CAM = 8  # cameras per frame the projection kernels hold on chip

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cama_tpu_torch.ops.lift import COLOR_MAPS
+
 # cv2.circle(radius=2, thickness=-1) footprint: (dy, dx) offsets
 CIRCLE_R2_OFFSETS = np.array(
     [(-2, 0)]
@@ -192,8 +194,6 @@ def unpack_cls_2bit(packed2, width):
 def build_color_table(class_names):
     """Per-class BGR color rows; any class other than "lane_marking" takes
     the "Crosswalk_Line" color, as the reference renderer does."""
-    from cama_tpu.ops.lift import COLOR_MAPS
-
     rows = []
     for name in class_names:
         eff = name if name == "lane_marking" else "Crosswalk_Line"

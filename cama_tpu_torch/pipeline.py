@@ -31,7 +31,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from cama_tpu.profiling import PhaseTimers
 from cama_tpu_torch import native as _native
 from cama_tpu_torch.io.frame_cache import FrameCache, frame_cache_key
 from cama_tpu_torch.io.scene import (
@@ -66,6 +65,7 @@ from cama_tpu_torch.ops.raster import (
     unpack_cls_2bit,
 )
 from cama_tpu_torch.ops.undistort import RemapCache, remap_host
+from cama_tpu_torch.profiling import PhaseTimers
 
 RASTER_KERNELS = ("fused", "pallas", "compact", "scatter", "auto")
 

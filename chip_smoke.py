@@ -7,15 +7,21 @@ Phases, each printing its own line; any failure raises and the script exits
 non-zero (also when no CUDA device is present, or when the package is not
 next to this script):
 
-  1. environment: the card, its power limit (nvidia-smi), TF32 off, and the
+  1. environment: the card, its power limit (nvidia-smi), TF32 off, the
      nvcc build of every kernel from cama_tpu_torch/csrc (one nvcc per
-     source, in parallel), with ptxas' register and shared-memory report;
+     source, in parallel) with ptxas' register, shared-memory and spill
+     report (any spill fails), and the g++ build of the host mosaic
+     compositor (required: the timed stream is the native path);
   2. kernels vs their plain versions on the card, all exact:
-     fused_compact_project and project_frame_pallas on the compute-bound
-     fixture scene (17 frames, ~253,600 points) tiled to 1,048,576 points,
-     one chunk of 16 frames, and on a tile-boundary case; paint_max at the
-     TPU probe's shape and on one chunk's survivor lists of the 'pallas'
-     lane (48 rasters of 540 x 960);
+     fused_compact_project and its counting entry point count_union on the
+     compute-bound fixture scene (17 frames, ~253,600 points) tiled to
+     1,048,576 points as one chunk of 16 frames, on a tile-boundary case,
+     on a crop-straddling case (P = 31k + 5, two cameras) at 1 and 16
+     frames, and on that case with an overflowing list (count > k_cap);
+     the kernels each of them runs per call (torch.profiler);
+     project_frame_pallas on the tiled scene and a ragged case; paint_max
+     at the TPU probe's shape and on one chunk's survivor lists of the
+     'pallas' lane (48 rasters of 540 x 960);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after: ClipPipeline(device='cuda').iter_overlay_rasters
      over every frame of the 'cama' source, raster_kernel 'fused' and then
@@ -25,19 +31,23 @@ next to this script):
      frame), against the plain versions' programs on the card and against
      each other (exact); and the kernel-strategy tool
      (cama_tpu_torch.tools.bench_kernels), the path of paint_max;
-  4. times: kernels and plain versions (CUDA events, median of 20 runs after
-     warm-up); per-chunk device time of each stage of both lanes' device
+  4. times: kernels, plain versions and library calls (CUDA events, median
+     of 20 runs after warm-up) beside each kernel's bound on this run's
+     inputs; per-chunk device time of each stage of both lanes' device
      programs; frames/s of the streams over windows of at least
      MIN_WINDOW_S seconds, with the host phase split and the device busy
      share (torch.profiler).
 
-The last two lines are the kernels' JSON record and the result line.
-Needs numpy and torch with CUDA, nvcc and g++; no cv2, yaml or ffmpeg.
+The last two lines are the kernels' JSON record and the result line.  The
+script fails if any module of jax or of the JAX package cama_tpu was
+loaded.  Needs numpy and torch with CUDA, nvcc and g++; no cv2, yaml or
+ffmpeg.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import sys
@@ -55,9 +65,13 @@ WINDOWS = 3
 POOL_THREADS = 6       # write_videos' default compositor pool
 DEVICE = "cuda"
 # mangled-name fragments of the kernels -> the names ptxas' report is shown by
-KERNEL_SYMBOLS = {"fc_passILb0": "fc_pass<false>", "fc_passILb1": "fc_pass<true>",
-                  "fc_scan": "fc_scan", "pp_kernel": "pp_kernel",
-                  "paint_kernel": "paint_kernel"}
+KERNEL_SYMBOLS = {"fc_tileILb0": "fc_tile<false> (count_union)",
+                  "fc_tileILb1": "fc_tile<true> (fused_compact_project)",
+                  "pp_kernel": "pp_kernel", "paint_kernel": "paint_kernel"}
+# the least time the card could take (NVIDIA's H100 SXM data sheet: HBM3
+# bandwidth and the float32 rate outside the tensor cores, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def say(phase, msg):
@@ -96,32 +110,20 @@ def tiled_inputs(pipe, device):
             for a in arrays]
 
 
-def tile_boundary_inputs(device):
-    """Same-pixel runs (a new pixel every 3 points) across every warp and
-    block boundary, invalid points inside runs, exact identity geometry."""
-    import numpy as np
+def case_tensors(case, device):
+    """A cama_tpu_torch.tools.fused_cases case on the card: (args, geo)."""
     import torch
 
-    P = 8192 + 512
-    rng = np.random.default_rng(3)
-    B = np.zeros((1, 1, 3, 4), np.float32)
-    B[0, 0, 0, 0] = B[0, 0, 1, 1] = B[0, 0, 2, 2] = 1.0
-    base = np.repeat(np.arange(P // 3 + 2), 3)[:P]
-    pts = np.stack([(base % 64).astype(np.float32),
-                    ((base // 64) % 64).astype(np.float32),
-                    np.ones(P, np.float32)], axis=1)
-    valid = np.ones(P, bool)
-    valid[rng.choice(P, 200, replace=False)] = False
-    cls = (base % 3).astype(np.int32)
-    arrays = (pts, valid, cls, np.eye(4, dtype=np.float32)[None], B,
-              np.ones(1, bool))
-    geo = (64, 64, np.full(3, -1e6, np.float32), np.full(3, 1e6, np.float32))
-    return [torch.from_numpy(a).to(device) for a in arrays], geo
+    arrays, (w, h, lo, hi) = case[:6], case[6:]
+    return ([torch.from_numpy(a.copy()).to(device) for a in arrays],
+            (w, h, lo, hi))
 
 
 def compare_project(args, geo, k_cap):
-    """Kernel vs plain version on the same card tensors; returns the max
-    absolute difference over counts and live rows (must be 0)."""
+    """fused_compact_project and count_union vs their plain versions on the
+    same card tensors: (max |diff| over counts and the live rows up to
+    k_cap, max |diff| of the counting entry point, min count, max count);
+    both differences must be 0."""
     import torch
 
     from cama_tpu_torch.ops import fused_compact as fc
@@ -133,13 +135,94 @@ def compare_project(args, geo, k_cap):
     torch.cuda.synchronize()
     err = int((cnt_k - cnt_r).abs().max())
     err_count = int((cnt_c - cnt_cr).abs().max())
-    if int(cnt_r.max()) > k_cap:
-        raise RuntimeError(f"k_cap {k_cap} below count {int(cnt_r.max())}")
     for f in range(cnt_r.shape[0]):
-        n = int(cnt_r[f])
+        n = min(int(cnt_r[f]), k_cap)
         if n:
             err = max(err, int((vals_k[f, :n] - vals_r[f, :n]).abs().max()))
     return err, err_count, int(cnt_r.min()), int(cnt_r.max())
+
+
+def device_work(fn, reps=3):
+    """({device kernel or memset name: runs per call}, device ms of one
+    call: the median over reps calls of the summed durations of its
+    kernels and memsets) from torch.profiler, or (None, None) when no
+    trace shows device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen, times = None, []
+    for _ in range(reps):  # a trace that caught no device event is skipped
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got, us = {}, 0.0
+        for e in prof.events():
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                name = "memset" if "memset" in e.name.lower() else e.name
+                got[name] = got.get(name, 0) + 1
+                us += e.time_range.elapsed_us()
+        if got:
+            seen = got
+            times.append(us / 1000.0)
+    if not times:
+        return None, None
+    return seen, statistics.median(times)
+
+
+def per_call(entry, fn, symbol, launches, device_ms):
+    """Print the device work of one call of fn; record in launches[entry]
+    how many of its kernels are the entry's own and in device_ms[entry]
+    its device time (None: not measured)."""
+    seen, ms = device_work(fn)
+    launches[entry] = (None if seen is None else
+                       sum(n for name, n in seen.items() if symbol in name))
+    device_ms[entry] = ms
+    say("kernel", f"{entry}: device work of one call (torch.profiler): "
+                  + ("not measured" if seen is None else
+                     f"{seen}, {ms:.5f} ms on the card"))
+    return seen
+
+
+def fmt(ms, scale):
+    return "not measured" if ms is None else f"{ms * scale:.4f}"
+
+
+def bound(nbytes, ops):
+    """(least ms, "bytes" or "operations", ms of the bytes, ms of the
+    operations) for moving nbytes and doing ops float32 operations on this
+    card."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes, t_ops)
+
+
+def in_crop(args, geo):
+    """[F, P] bool: the point-frames of args (points, valid, [cls,] A, B,
+    frame_valid) that the crop box and validity keep (float32 einsum)."""
+    import torch
+
+    points, valid, A, fv = args[0], args[1], args[-3], args[-1]
+    lo = torch.as_tensor(geo[2], device=points.device)
+    hi = torch.as_tensor(geo[3], device=points.device)
+    p4 = torch.cat([points, torch.ones_like(points[:, :1])], dim=1)
+    xyz = torch.einsum("fij,pj->fpi", A[:, :3], p4)
+    return ((xyz >= lo) & (xyz <= hi)).all(-1) & valid[None] & fv[:, None]
+
+
+def projection_work(args, geo, kept=None):
+    """(input bytes, float32 operations) of projecting the points of args
+    into every frame and camera: each input read once (class ids
+    excluded); the crop test (three rows of 4 multiplies and 3 adds) of
+    every point and frame, and each camera's three rows and two divides
+    for every point or, given kept (the number of point-frames the crop
+    and validity keep), only for those."""
+    points, B = args[0], args[-2]
+    P, F, C = points.shape[0], B.shape[0], B.shape[1]
+    nbytes = P * 13 + F * (1 + 64 + C * 48)
+    return nbytes, F * P * 21 + (F * P if kept is None else kept) * 23 * C
 
 
 def run_stream(pipe, source, pool, rasters=None, min_seconds=0.0):
@@ -286,6 +369,7 @@ def main():
                                                packed_to_cls,
                                                rasterize_from_compact)
         from cama_tpu_torch.tools import bench_kernels as bk
+        from cama_tpu_torch.tools import fused_cases
     except ImportError as e:
         sys.exit(f"chip_smoke: cama_tpu_torch not importable next to "
                  f"{__file__}: {e}")
@@ -308,16 +392,25 @@ def main():
     say("build", f"{os.path.relpath(_build.library_path(), ROOT)} from "
                  f"{srcs} {built}; load {time.perf_counter() - t0:.2f} s; "
                  f"nvcc {' '.join(_build.NVCC_FLAGS)}")
-    kernel = None
+    kernel, spills = None, []
     for line in _build.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
             kernel = next((short for sym, short in KERNEL_SYMBOLS.items()
                            if sym in line), line)
+        elif "spill stores" in line and kernel:
+            say("build", f"ptxas {kernel}: {line.strip()}")
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
+                spills.append(kernel)
         elif "Used " in line and kernel:
             say("build", f"ptxas {kernel}: {line.split(':', 1)[1].strip()}")
+    if spills:
+        raise RuntimeError(f"ptxas reports register spills in {spills}")
     t0 = time.perf_counter()
-    composer = "native" if native.available() else "NumPy fallback"
-    say("build", f"host mosaic compositor: {composer} "
+    if not native.available():
+        raise RuntimeError("the host mosaic compositor did not build (g++): "
+                           "the stream would time the NumPy fallback")
+    say("build", f"host mosaic compositor: native, "
+                 f"{os.path.relpath(native.library_path(), ROOT)} "
                  f"({time.perf_counter() - t0:.2f} s)")
 
     # ---- phase 2: kernels vs plain versions ----
@@ -328,17 +421,39 @@ def main():
     h, w = probe.scene.output_size
     geo = (w, h, probe._crop_lo, probe._crop_hi)
     k_tiled = tp._pow2_cap(int(fc.count_union(*tiled, *geo).max()), N_POINTS)
-    err_big, err_big_c, lo_c, hi_c = compare_project(tiled, geo, k_tiled)
-    tb_args, tb_geo = tile_boundary_inputs(dev)
-    err_tb, err_tb_c, tb_n, _ = compare_project(tb_args, tb_geo, 4096)
-    max_err = max(err_big, err_big_c, err_tb, err_tb_c)
-    say("kernel", f"fused_compact_project, {N_POINTS} points x {CHUNK_TILED} "
-                  f"frames: union counts {lo_c}..{hi_c}, k_cap {k_tiled}, max "
-                  f"|kernel - plain| {err_big} (counting passes {err_big_c}); "
-                  f"tile-boundary case: {tb_n} rows, max |diff| {err_tb} "
-                  f"(counting passes {err_tb_c}); tolerance 0 (exact)")
-    if max_err != 0:
+    crop1 = case_tensors(fused_cases.crop_straddle_case(1), dev)
+    crop16 = case_tensors(fused_cases.crop_straddle_case(16), dev)
+    tb_args, tb_geo = case_tensors(fused_cases.tile_boundary_case(8192 + 512),
+                                   dev)
+    k_over = int(fc.count_union_ref(*crop16[0], *crop16[1]).max()) // 2
+    fused_checks = {
+        f"{N_POINTS} points x {CHUNK_TILED} frames": (tiled, geo, k_tiled),
+        "tile boundaries, 1 frame": (tb_args, tb_geo, 4096),
+        "crop-straddling, 1 frame": (*crop1, 16384),
+        f"crop-straddling, {CHUNK_TILED} frames": (*crop16, 16384),
+        f"crop-straddling, {CHUNK_TILED} frames, overflow": (*crop16, k_over)}
+    fused_err = count_err = 0
+    for label, (args, g, k) in fused_checks.items():
+        err, err_c, lo_c, hi_c = compare_project(args, g, k)
+        fused_err, count_err = max(fused_err, err), max(count_err, err_c)
+        say("kernel", f"fused_compact_project, {label} "
+                      f"({args[0].shape[0]} points): counts {lo_c}..{hi_c}, "
+                      f"k_cap {k}, max |kernel - plain| {err}; count_union "
+                      f"max |kernel - plain| {err_c}; tolerance 0 (exact)")
+        if "overflow" in label and hi_c <= k:
+            raise RuntimeError("the overflow case does not overflow")
+    if fused_err or count_err:
         raise RuntimeError("fused CUDA kernel disagrees with its plain version")
+    launches_per_call, dev_ms = {}, {}
+    for entry, fn in (
+            ("fused_compact_project",
+             lambda: fc.fused_compact_project(*tiled, *geo, k_tiled)),
+            ("count_union", lambda: fc.count_union(*tiled, *geo))):
+        seen = per_call(entry, fn, "fc_tile", launches_per_call, dev_ms)
+        if seen is not None and (launches_per_call[entry] != 1 or len(seen) > 2
+                                 or seen.get("memset", 1) != 1):
+            raise RuntimeError(f"{entry} is not one memset and one launch a "
+                               f"call: {seen}")
 
     proj_tiled = [tiled[i] for i in (0, 1, 3, 4, 5)]  # no class ids
     vu_big, keep_big, kept_big = compare_projection(proj_tiled, geo)
@@ -380,6 +495,11 @@ def main():
                   f"tolerance 0")
     if paint_err != 0:
         raise RuntimeError("paint CUDA kernel disagrees with its plain version")
+    per_call("project_frame_pallas",
+             lambda: pp.project_frame_pallas(*proj_tiled, *geo), "pp_kernel",
+             launches_per_call, dev_ms)
+    per_call("paint_max", lambda: paint.paint_max(*chunk_pts, h, w),
+             "paint_kernel", launches_per_call, dev_ms)
 
     # ---- phase 3: the main paths ----
     pool = ThreadPoolExecutor(max_workers=POOL_THREADS)
@@ -486,21 +606,65 @@ def main():
     ms_r = time_ms(lambda: fc.fused_compact_project_ref(*tiled, *geo, k_tiled))
     ms_ck = time_ms(lambda: fc.count_union(*tiled, *geo))
     ms_cr = time_ms(lambda: fc.count_union_ref(*tiled, *geo))
+    rows = int(fc.count_union(*tiled, *geo).clamp(max=k_tiled).sum())
+    C_t = tiled[4].shape[1]
+    inside = in_crop(tiled, geo)
+    # 32-point groups (a warp's points) with any point the crop keeps
+    groups = inside[:, :N_POINTS // 32 * 32].reshape(CHUNK_TILED, -1, 32)
+    share_points = 100.0 * float(inside.float().mean())
+    share_groups = 100.0 * float(groups.any(-1).float().mean())
+    say("kernel", f"tiled scene: {share_points:.2f} % of the point-frames "
+                  f"and {share_groups:.2f} % of the 32-point groups lie in "
+                  f"the crop (valid points); union rows "
+                  f"{rows / CHUNK_TILED:.1f} per frame")
+    in_bytes, ops = projection_work(tiled, geo, kept=int(inside.sum()))
+    # the compaction also reads every class id and writes the live rows
+    bound_k, by_k, bk_b, bk_o = bound(in_bytes + N_POINTS * 4
+                                      + rows * C_t * 4 + CHUNK_TILED * 4, ops)
+    bound_c, by_c, bc_b, bc_o = bound(in_bytes + CHUNK_TILED * 4, ops)
     say("time", f"fused_compact_project at {N_POINTS} points: kernel "
-                f"{ms_k * per:.4f} ms/frame, plain {ms_r * per:.4f} ms/frame "
-                f"(chunk of {CHUNK_TILED}, median of {bk.RUNS}); its "
-                f"counting passes alone (count_union): kernel "
-                f"{ms_ck * per:.4f}, plain {ms_cr * per:.4f} ms/frame | {card}")
+                f"{ms_k * per:.4f} ms/frame (card alone "
+                f"{fmt(dev_ms['fused_compact_project'], per)}), plain "
+                f"{ms_r * per:.4f} ms/frame, bound {bound_k * per:.5f} "
+                f"ms/frame ({by_k}; bytes {bk_b * per:.5f}, operations "
+                f"{bk_o * per:.5f}); count_union: kernel {ms_ck * per:.4f} "
+                f"(card alone {fmt(dev_ms['count_union'], per)}), plain "
+                f"{ms_cr * per:.4f}, bound {bound_c * per:.5f} ms/frame "
+                f"({by_c}; bytes {bc_b * per:.5f}, operations "
+                f"{bc_o * per:.5f}) (chunk of {CHUNK_TILED}, median of "
+                f"{bk.RUNS}) | {card}")
     ms_pk = time_ms(lambda: pp.project_frame_pallas(*proj_tiled, *geo))
     ms_pr = time_ms(lambda: pp.project_frame_pallas_ref(*proj_tiled, *geo))
+    in_bytes, ops = projection_work(proj_tiled, geo)
+    # every (v, u) pair and keep byte of every frame, camera and point out
+    bound_p, by_p = bound(in_bytes + CHUNK_TILED * C_t * N_POINTS * 9, ops)[:2]
     say("time", f"project_frame_pallas at {N_POINTS} points: kernel "
-                f"{ms_pk * per:.4f} ms/frame, plain {ms_pr * per:.4f} ms/frame "
-                f"(chunk of {CHUNK_TILED}, median of {bk.RUNS}) | {card}")
+                f"{ms_pk * per:.4f} ms/frame (card alone "
+                f"{fmt(dev_ms['project_frame_pallas'], per)}), plain "
+                f"{ms_pr * per:.4f} ms/frame, "
+                f"bound {bound_p * per:.4f} ms/frame ({by_p}) (chunk of "
+                f"{CHUNK_TILED}, median of {bk.RUNS}) | {card}")
     ms_ak = time_ms(lambda: paint.paint_max(*chunk_pts, h, w))
     ms_ar = time_ms(lambda: paint.paint_max_ref(*chunk_pts, h, w))
+    # the library call: scatter_reduce_ amax onto a fresh -1 raster, from
+    # the flat pixel indices (skipped points aimed at a spare column)
+    py_, px_, prio_ = chunk_pts
+    ok_ = prio_ >= 0
+    flat = torch.where(ok_, py_ * w + px_, h * w).to(torch.int64)
+    def library():
+        return torch.full((n_img, h * w + 1), -1, dtype=torch.int32,
+                          device=dev).scatter_reduce_(1, flat, prio_, "amax")
+
+    ms_al = time_ms(library)
+    ms_al_card = device_work(library)[1]
+    bound_a, by_a = bound(3 * 4 * py_.numel() + n_img * h * w * 4,
+                          int(ok_.sum()))[:2]
     say("time", f"paint_max, one 'pallas' chunk's survivor lists into "
-                f"[{n_img}, {h}, {w}]: kernel {ms_ak:.4f} ms, plain "
-                f"(scatter_reduce_) {ms_ar:.4f} ms; probe: kernel "
+                f"[{n_img}, {h}, {w}]: kernel {ms_ak:.4f} ms (card alone "
+                f"{fmt(dev_ms['paint_max'], 1.0)}), plain "
+                f"{ms_ar:.4f} ms, library (scatter_reduce_) {ms_al:.4f} ms "
+                f"(card alone {fmt(ms_al_card, 1.0)}), "
+                f"bound {bound_a:.4f} ms ({by_a}); probe: kernel "
                 f"{bench['paint']['kernel_ns_per_point']:.4f} ns/point, plain "
                 f"{bench['paint']['scatter_reduce_ns_per_point']:.4f} "
                 f"ns/point | {card}")
@@ -514,6 +678,9 @@ def main():
     packed = fc.rasterize_from_union(vals, count, w, h)
     cls_r = packed_to_cls(packed)
     stages = {
+        "count_union (k sizing, once per chunk)": time_ms(
+            lambda: fc.count_union(*chunk_args, w, h, pipe._crop_lo,
+                                   pipe._crop_hi)),
         "fused_compact_project": time_ms(lambda: fc.fused_compact_project(
             *chunk_args, w, h, pipe._crop_lo, pipe._crop_hi, k_cap)),
         "rasterize_from_union": time_ms(
@@ -523,6 +690,16 @@ def main():
         "whole chunk": time_ms(lambda: tp._overlay_chunk_fused(
             *chunk_args, pipe._crop_lo, pipe._crop_hi, w, h, k_cap, True)),
     }
+    for entry, fn in (
+            ("count_union", lambda: fc.count_union(
+                *chunk_args, w, h, pipe._crop_lo, pipe._crop_hi)),
+            ("fused_compact_project", lambda: fc.fused_compact_project(
+                *chunk_args, w, h, pipe._crop_lo, pipe._crop_hi, k_cap)),
+            ("whole chunk", lambda: tp._overlay_chunk_fused(
+                *chunk_args, pipe._crop_lo, pipe._crop_hi, w, h, k_cap,
+                True))):
+        stages[f"{entry} on the card alone (torch.profiler)"] = (
+            device_work(fn)[1] or float("nan"))
     say("time", "'fused' device program, ms per chunk of "
                 f"{CHUNK} frames at {st.points.shape[0]} points (CUDA events, "
                 f"median of {bk.RUNS}): "
@@ -540,6 +717,10 @@ def main():
             lambda: pack_cls_2bit(packed_to_cls(packed0))),
         "whole chunk": time_ms(lambda: tp._overlay_chunk_pallas(
             *chunk_args, pal._crop_lo, pal._crop_hi, w, h, k_pal, True)),
+        "whole chunk on the card alone (torch.profiler)": device_work(
+            lambda: tp._overlay_chunk_pallas(
+                *chunk_args, pal._crop_lo, pal._crop_hi, w, h, k_pal,
+                True))[1] or float("nan"),
     }
     say("time", "'pallas' device program, ms per chunk of "
                 f"{CHUNK} frames at {st.points.shape[0]} points (CUDA events, "
@@ -571,42 +752,62 @@ def main():
                 + f" | {card}")
     pool.shutdown()
 
-    jax_mods = sorted(m for m in sys.modules if sys.modules[m] is not None
-                      and m.split(".")[0] in ("jax", "jaxlib"))
-    reused = sorted(m for m in sys.modules if m.split(".")[0] == "cama_tpu")
-    say("env", f"modules of the JAX package loaded: {reused}; jax modules "
-               f"loaded: {len(jax_mods)}")
-    if jax_mods:
-        raise RuntimeError(f"the port imported jax: {jax_mods[:5]}")
+    loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))
+    say("env", f"modules of jax or of the JAX package cama_tpu loaded: "
+               f"{len(loaded)}")
+    if loaded:
+        raise RuntimeError(f"the port loaded jax or cama_tpu: {loaded[:5]}")
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
+              bound_by, library_ms, launches_per_call, scale, **extra):
+        card_ms = dev_ms[name]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms,
+                "device_ms": None if card_ms is None else card_ms * scale,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "launches_per_call": launches_per_call,
+                **extra}
+
+    fused_src = "cama_tpu_torch/csrc/fused_compact.cu"
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": "fused_compact_project", "route": "cuda",
-         "source": "cama_tpu_torch/csrc/fused_compact.cu",
-         "replaces": "cama_tpu/ops/fused_compact.py:241",
-         "launches": paths["fused"][4]["fused_compact_project"],
-         "max_abs_err": max(err_big, err_tb),
-         "ms": ms_k * per, "plain_ms": ms_r * per,
-         # the same kernel's counting passes (count + scan), run alone by
-         # the k_cap sizing of the main path
-         "count_launches": paths["fused"][4]["count_union"],
-         "count_max_abs_err": max(err_big_c, err_tb_c),
-         "count_ms": ms_ck * per, "count_plain_ms": ms_cr * per},
-        {"name": "project_frame_pallas", "route": "cuda",
-         "source": "cama_tpu_torch/csrc/pallas_project.cu",
-         "replaces": "cama_tpu/ops/pallas_project.py:82",
-         "launches": paths["pallas"][4]["project_frame_pallas"],
-         "max_abs_err": pp_err, "ms": ms_pk * per, "plain_ms": ms_pr * per},
-        # its path is the kernel-strategy tool; ms at the main path's shape
-        # (one chunk's survivor lists), the probe's time per point beside it
-        {"name": "paint_max", "route": "cuda",
-         "source": "cama_tpu_torch/csrc/paint_max.cu",
-         "replaces": "tools/bench_pallas.py:148",
-         "launches": bench_launches["paint_max"],
-         "max_abs_err": paint_err, "ms": ms_ak, "plain_ms": ms_ar,
-         "probe_ns_per_point": bench["paint"]["kernel_ns_per_point"],
-         "probe_plain_ns_per_point":
-             bench["paint"]["scatter_reduce_ns_per_point"]}]}), flush=True)
+        # times of the two projection kernels in ms per frame (chunk of 16
+        # at 1,048,576 points); no single PyTorch call computes them.  ms:
+        # CUDA events around one call, the host's enqueue included;
+        # device_ms: the call's kernels and memsets alone (torch.profiler)
+        entry("fused_compact_project", fused_src,
+              "cama_tpu/ops/fused_compact.py:241",
+              paths["fused"][4]["fused_compact_project"], fused_err,
+              ms_k * per, ms_r * per, bound_k * per, by_k, None,
+              launches_per_call["fused_compact_project"], per,
+              unit="ms/frame"),
+        # the same kernel without the writes, which sizes k on the main
+        # path (the JAX package counts with XLA: pipeline.py:447)
+        entry("count_union", fused_src, "cama_tpu/pipeline.py:447",
+              paths["fused"][4]["count_union"], count_err, ms_ck * per,
+              ms_cr * per, bound_c * per, by_c, None,
+              launches_per_call["count_union"], per, unit="ms/frame"),
+        entry("project_frame_pallas", "cama_tpu_torch/csrc/pallas_project.cu",
+              "cama_tpu/ops/pallas_project.py:82",
+              paths["pallas"][4]["project_frame_pallas"], pp_err,
+              ms_pk * per, ms_pr * per, bound_p * per, by_p, None,
+              launches_per_call["project_frame_pallas"], per,
+              unit="ms/frame"),
+        # its path is the kernel-strategy tool; ms per call at the main
+        # path's shape (one chunk's survivor lists), the probe's ns per
+        # point beside it
+        entry("paint_max", "cama_tpu_torch/csrc/paint_max.cu",
+              "tools/bench_pallas.py:148", bench_launches["paint_max"],
+              paint_err, ms_ak, ms_ar, bound_a, by_a, ms_al,
+              launches_per_call["paint_max"], 1.0, unit="ms/call",
+              library_device_ms=ms_al_card,
+              probe_ns_per_point=bench["paint"]["kernel_ns_per_point"],
+              probe_plain_ns_per_point=
+              bench["paint"]["scatter_reduce_ns_per_point"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,7 @@ from cama_tpu_torch.io.scene import compile_scene
 from cama_tpu_torch.ops import fused_compact as tfc
 from cama_tpu_torch.ops.geometry import compose_frame_matrices, crop_bounds
 from cama_tpu_torch.ops.raster import packed_to_cls
+from cama_tpu_torch.tools import fused_cases
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -175,6 +176,41 @@ def test_ref_matches_jax_kernel_across_tile_boundaries():
     assert int(cnt[0]) == n_j
 
 
+@pytest.mark.parametrize("frame", [0, 3, 5, 9])
+def test_ref_matches_jax_kernel_on_crop_straddling_case(frame):
+    """Exact geometry in both packages, crop edges cutting same-pixel runs,
+    whole groups outside the crop or behind the cameras next to kept ones,
+    P = 31k + 5, two cameras: count and rows bit for bit (frame 5 is
+    invalid: no rows)."""
+    pts, valid, cls, A, B, fv, w, h, lo, hi = fused_cases.crop_straddle_case(
+        16, groups=200)
+    k_cap = 8192
+    sl = slice(frame, frame + 1)
+    vals_t, cnt_t = tfc.fused_compact_project(
+        *_t(pts, valid, cls, A[sl], B[sl], fv[sl]), w, h, lo, hi, k_cap)
+    n_t = int(cnt_t[0])
+    if fv[frame]:
+        vals_j, n_j = _jax_frame(pts, valid, cls, A[frame], B[frame], w, h,
+                                 lo, hi, k_cap)
+    else:
+        n_j = 0
+    assert n_t == n_j and (n_t > 0) == bool(fv[frame])
+    np.testing.assert_array_equal(vals_t[0, :n_t].numpy(),
+                                  vals_j[:n_j] if n_j else vals_t[0, :0].numpy())
+
+
+@pytest.mark.parametrize("case", ["tile_boundary", "crop_straddle"])
+def test_count_union_equals_compaction_count(case):
+    """The counting entry point agrees with the compaction's count on every
+    frame of the edge cases (including an invalid frame)."""
+    args = (fused_cases.tile_boundary_case(8192 + 512) if case == "tile_boundary"
+            else fused_cases.crop_straddle_case(16, groups=200))
+    t = _t(*args[:6])
+    _, cnt = tfc.fused_compact_project(*t, *args[6:], 16)
+    got = tfc.count_union(*t, *args[6:])
+    assert torch.equal(got, cnt) and int(cnt.max()) > 16
+
+
 def test_overflow_is_reported(frames):
     """count > k_cap is reported with the true total, and the first k_cap
     rows are the first k_cap survivors (the JAX contract)."""
@@ -226,25 +262,41 @@ def test_wrapper_runs_plain_version_only_on_cpu(frames):
                                   args[5], w, h, lo, hi, 4096)
 
 
+def _card_cases(frames):
+    """(name, case, k_cap) of the card check: the fixture, the tile
+    boundaries, the crop-straddling case at F = 1 and F = 16, and the
+    latter again with k_cap at half its largest count (overflow)."""
+    one = fused_cases.crop_straddle_case(1)
+    many = fused_cases.crop_straddle_case(16)
+    return [("fixture", frames, 8192),
+            ("tile_boundary", fused_cases.tile_boundary_case(8192 + 512), 8192),
+            ("crop_straddle F=1", one, 16384),
+            ("crop_straddle F=16", many, 16384),
+            ("overflow F=16", many, 4800)]
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version(frames):
-    """On the card: the CUDA kernel equals its plain version exactly
-    (count and every live row) on the fixture and the tile-boundary case,
-    and the counting entry point agrees."""
+    """On the card: the CUDA kernel equals its plain version exactly (count
+    and every live row, up to k_cap) on every edge case, one launch per
+    call, and the counting entry point agrees."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: "
                     "python -m pytest tests/test_torch_*.py -m cuda)")
-    for case in (frames, _tile_boundary_case()):
+    for name, case, k_cap in _card_cases(frames):
         points, valid, cls, A, B, fv, w, h, lo, hi = case
         args = [t.cuda() for t in _t(points, valid, cls, A, B, fv)]
-        before = tfc.LAUNCHES["fused_compact_project"]
-        vals_k, cnt_k = tfc.fused_compact_project(*args, w, h, lo, hi, 8192)
-        assert tfc.LAUNCHES["fused_compact_project"] == before + 1
-        vals_r, cnt_r = tfc.fused_compact_project_ref(*args, w, h, lo, hi,
-                                                      8192)
+        before = dict(tfc.LAUNCHES)
+        vals_k, cnt_k = tfc.fused_compact_project(*args, w, h, lo, hi, k_cap)
         cnt_c = tfc.count_union(*args, w, h, lo, hi)
+        assert tfc.LAUNCHES == {k: v + 1 for k, v in before.items()}
+        vals_r, cnt_r = tfc.fused_compact_project_ref(*args, w, h, lo, hi,
+                                                      k_cap)
         torch.cuda.synchronize()
-        assert torch.equal(cnt_k, cnt_r) and torch.equal(cnt_c, cnt_r)
+        assert torch.equal(cnt_k, cnt_r), name
+        assert torch.equal(cnt_c, cnt_r), name
+        if name.startswith("overflow"):
+            assert int(cnt_r.max()) > k_cap
         for f in range(len(fv)):
-            n = int(cnt_r[f])
-            assert torch.equal(vals_k[f, :n], vals_r[f, :n])
+            n = min(int(cnt_r[f]), k_cap)
+            assert torch.equal(vals_k[f, :n], vals_r[f, :n]), (name, f)

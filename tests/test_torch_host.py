@@ -1,6 +1,7 @@
-"""cama_tpu_torch's jax-free copies of cama_tpu host code give the same bits:
-SE(3) algebra and pose seek, clip reader, fixture clip, config schema,
-scene-cache key, and the reused frame-cache / video modules."""
+"""cama_tpu_torch's copies of cama_tpu host code give the same bits: SE(3)
+algebra and pose seek, clip reader, fixture clip, config schema,
+scene-cache key, phase timers, lifting, the native compositor, the frame
+cache and the video mosaic."""
 import filecmp
 import os
 
@@ -8,21 +9,27 @@ import numpy as np
 import pytest
 
 from cama_tpu import config as jconfig
+from cama_tpu import native as jnative
+from cama_tpu import profiling as jprofiling
 from cama_tpu.io import clip as jclip
 from cama_tpu.io import fixture as jfixture
 from cama_tpu.io import frame_cache as jframe_cache
 from cama_tpu.io import scene as jscene
 from cama_tpu.io import video as jvideo
+from cama_tpu.ops import lift as jlift
 from cama_tpu.se3 import codec as jcodec
 from cama_tpu.se3 import core as jcore
 from cama_tpu.se3 import trajectory as jtraj
 from cama_tpu_torch import config as tconfig
+from cama_tpu_torch import native as tnative
+from cama_tpu_torch import profiling as tprofiling
 from cama_tpu_torch import se3 as tse3
 from cama_tpu_torch.io import clip as tclip
 from cama_tpu_torch.io import fixture as tfixture
 from cama_tpu_torch.io import frame_cache as tframe_cache
 from cama_tpu_torch.io import scene as tscene
 from cama_tpu_torch.io import video as tvideo
+from cama_tpu_torch.ops import lift as tlift
 
 
 def _rigid(rng, n):
@@ -182,16 +189,141 @@ def test_config_device_key(tmp_path):
         tconfig.load_config(str(tmp_path / "missing.yaml"))
 
 
-def test_reused_host_modules_are_cama_tpus():
-    """The frame cache and video sink are cama_tpu's files, loaded without
-    running cama_tpu/io/__init__.py."""
-    assert tframe_cache._frame_cache.__file__ == jframe_cache.__file__
-    assert tvideo._video.__file__ == jvideo.__file__
+def _timers_record(mod, monkeypatch):
+    """Drive one package's PhaseTimers on a fake clock; what it
+    accumulates."""
+    ticks = iter([10.0, 10.25, 11.0, 11.5, 12.0, 12.125, 13.0, 13.0625])
+    monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
+    t = mod.PhaseTimers()
+    for name in ("device_dispatch", "host_composite", "device_dispatch"):
+        with t.phase(name):
+            pass
+    with pytest.raises(KeyError):
+        with t.phase("failed"):
+            raise KeyError("x")
+    return dict(t.total), dict(t.count)
+
+
+def test_phase_timers_match(monkeypatch):
+    a = _timers_record(tprofiling, monkeypatch)
+    assert a == _timers_record(jprofiling, monkeypatch)
+    assert a == ({"device_dispatch": 0.375, "host_composite": 0.5,
+                  "failed": 0.0625},
+                 {"device_dispatch": 2, "host_composite": 1, "failed": 1})
+
+
+@pytest.mark.parametrize("name", [
+    "SOLUTION", "MAP_WIDTH", "MAP_HEIGHT", "CENTER_X", "CENTER_Y", "CROP_BOX",
+    "COLOR_MAPS", "DEFAULT_CLASS_NAMES", "_SCALAR_DIV_PROMOTES_F64"])
+def test_lift_constants_match(name):
+    a, b = getattr(tlift, name), getattr(jlift, name)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("source", ["cama", "nuscenes"])
+def test_lift_instances_bit_identical(clip_pair, source):
+    """Both packages lift the fixture's labels to the same polylines, and
+    flatten them to the same FlatPoints."""
+    reader = tclip.ClipReader(clip_pair[0])
+    cfg = jscene.DEFAULT_CAMA_CONFIGS
+    if source == "cama":
+        labels = reader.map_json(cfg["result_dir"], cfg["cama_map_file"])
+        grid = reader.height_grid(cfg["result_dir"], cfg["height_mlp"])
+        a = tlift.lift_cama_instances(labels, grid, map_width=300.0,
+                                      map_height=300.0)
+        b = jlift.lift_cama_instances(labels, grid, map_width=300.0,
+                                      map_height=300.0)
+    else:
+        labels = reader.map_json(cfg["result_dir"], cfg["nuscenes_map_file"])
+        a = tlift.lift_nuscenes_instances(labels)
+        b = jlift.lift_nuscenes_instances(labels)
+    assert len(a) == len(b) > 0
+    for (ca, pa), (cb, pb) in zip(a, b):
+        assert ca == cb and pa.dtype == pb.dtype
+        np.testing.assert_array_equal(pa, pb)
+    fa = tscene.flatten_instances(a, pad_multiple=256)
+    fb = jlift.flatten_instances(b, pad_multiple=256)
+    assert isinstance(fa, tlift.FlatPoints) and fa.num_valid == fb.num_valid
+    assert fa.class_names == fb.class_names
+    for field in ("points", "cls", "inst", "valid"):
+        np.testing.assert_array_equal(getattr(fa, field), getattr(fb, field))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("with_base", [True, False])
+def test_native_composite_byte_identical(packed, with_base):
+    """The port's compositor, built from its own copy of compositor.cpp
+    into build/cama_tpu_torch/, writes the same bytes as cama_tpu.native,
+    into a mosaic slot view, from class rasters or 2-bit packed ones."""
+    assert tnative.available() and jnative.available()
+    assert os.path.dirname(tnative.library_path()) == os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build",
+        "cama_tpu_torch")
+    rng = np.random.default_rng(11)
+    h, w = 37, 53  # odd sizes: the 8-pixel skip loop's and the packing's tails
+    base = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    raster = np.where(rng.random((h, w)) < 0.3,
+                      rng.integers(1, 4, (h, w)), 0).astype(np.uint8)
+    table = rng.integers(0, 256, (3, 3), dtype=np.uint8)
+    outs = []
+    for mod in (tnative, jnative):
+        mosaic = np.zeros((2 * h, 3 * w, 3), np.uint8)
+        slot = mosaic[h:, w:2 * w]
+        if not with_base:
+            slot[:] = base
+        src = base if with_base else None
+        if packed:
+            p4 = np.pad(raster, ((0, 0), (0, -w % 4))).reshape(h, -1, 4)
+            packed2 = (p4[..., 0] | p4[..., 1] << 2 | p4[..., 2] << 4
+                       | p4[..., 3] << 6).astype(np.uint8)
+            mod.composite_packed2(src, packed2, table, slot, w)
+        else:
+            mod.composite(src, raster, table, slot)
+        outs.append(mosaic)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert (outs[0][h:, w:2 * w] != base).any()
+
+
+def test_frame_cache_key_and_shared_store(tmp_path):
+    """Same key, and one on-disk store: what one package writes, the other
+    reads back."""
+    key = (["camera_front", "camera_rear"], (4, 8), np.eye(3)[None].repeat(2, 0),
+           np.zeros((2, 8)), 2 * np.eye(3)[None].repeat(2, 0),
+           {"camera_front": [1, 2, 3], "camera_rear": [1, 2, 4]})
+    k = tframe_cache.frame_cache_key(*key)
+    assert k == jframe_cache.frame_cache_key(*key)
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, (2, 4, 8, 3), dtype=np.uint8)
+    writer = tframe_cache.FrameCache(tmp_path, 3, 2, (4, 8), k,
+                                     async_writes=False)
+    writer.put(1, 0, imgs[0])
+    writer.put(2, 1, imgs[1])
+    writer.flush()
+    reader = jframe_cache.FrameCache(tmp_path, 3, 2, (4, 8), k,
+                                     async_writes=False)
+    np.testing.assert_array_equal(reader.get(1, 0), imgs[0])
+    np.testing.assert_array_equal(reader.get(2, 1), imgs[1])
+    assert reader.get(0, 0) is None and reader.hit_rate() == 2 / 6
+    reader.put(0, 1, imgs[1])
+    reader.flush()
+    again = tframe_cache.FrameCache(tmp_path, 3, 2, (4, 8), k,
+                                    async_writes=False)
+    np.testing.assert_array_equal(again.get(0, 1), imgs[1])
+    # another key invalidates the store for both
+    assert tframe_cache.FrameCache(tmp_path, 3, 2, (4, 8), "other",
+                                   async_writes=False).get(1, 0) is None
+
+
+def test_concat_camera_grid_matches():
     assert tvideo.CAMERA_GRID == jvideo.CAMERA_GRID
-    key = (["camera_front"], (4, 8), np.eye(3)[None], np.zeros((1, 8)),
-           np.eye(3)[None], {"camera_front": [1, 2]})
-    assert tframe_cache.frame_cache_key(*key) == jframe_cache.frame_cache_key(*key)
     imgs = {cam: np.full((2, 3, 3), i, np.uint8)
             for i, cam in enumerate(jscene.DEFAULT_CAMA_CONFIGS["camera_list"])}
     np.testing.assert_array_equal(tvideo.concat_camera_grid(imgs),
                                   jvideo.concat_camera_grid(imgs))
+    out = np.empty((4, 9, 3), np.uint8)
+    assert tvideo.concat_camera_grid(imgs, out=out) is out

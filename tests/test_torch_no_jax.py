@@ -1,7 +1,8 @@
-"""cama_tpu_torch runs with jax unimportable, and never loads jax where it
-is installed.  These run in subprocesses: tests/conftest.py imports jax
-into every test process."""
+"""cama_tpu_torch runs with jax unimportable, never loads jax where it is
+installed, and imports nothing of the JAX package cama_tpu.  These run in
+subprocesses: tests/conftest.py imports jax into every test process."""
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -56,12 +57,45 @@ _CHILD_INSTALLED = textwrap.dedent("""
                             "cama_configs": {"raster_kernel": lane}}, f)
         assert main(["--config", cfg, "--device", "cpu"]) == 0
         assert sorted(os.listdir(out)) == ["s_cama.mp4", "s_nuScenes.mp4"]
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "jaxlib") or m.startswith(
-                        ("cama_tpu.io", "cama_tpu.se3", "cama_tpu.ops.geometry",
-                         "cama_tpu.pipeline", "cama_tpu.config")))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))
     assert not loaded, loaded
     print("JAX_NEVER_LOADED")
+""")
+
+
+# the JAX package unimportable: every lane and the CLI, with the native
+# compositor, the frame cache and the video sink, run on the port's copies
+_CHILD_NO_CAMA_TPU = textwrap.dedent("""
+    import os, sys, tempfile
+    sys.modules["cama_tpu"] = None  # any `import cama_tpu...` now raises
+    import yaml
+    import cama_tpu_torch.pipeline as tp
+    from cama_tpu_torch import native
+    from cama_tpu_torch.cli import main
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    root = tempfile.mkdtemp()
+    clip = make_fixture_clip(os.path.join(root, "c"), scene_name="s",
+                             n_frames=3)
+    for lane in tp.RASTER_KERNELS:
+        pipe = tp.ClipPipeline(clip_path=clip, chunk=2, raster_kernel=lane,
+                               device="cpu")
+        rasters = dict(pipe.iter_overlay_rasters("cama"))
+        assert len(rasters) >= 2 and all(r.any() for r in rasters.values())
+    assert native.available()
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"converted_dataroot": os.path.join(root, "c"),
+                        "scene_names": ["s"],
+                        "output_video_dir": os.path.join(root, "v")}, f)
+    assert main(["--config", cfg, "--device", "cpu"]) == 0
+    assert sorted(os.listdir(os.path.join(root, "v"))) == [
+        "s_cama.mp4", "s_nuScenes.mp4"]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "cama_tpu"
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("NO_CAMA_TPU_OK")
 """)
 
 
@@ -82,6 +116,39 @@ def test_port_never_loads_installed_jax(tmp_path):
     proc = _run_child(_CHILD_INSTALLED, tmp_path)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_NEVER_LOADED" in proc.stdout
+
+
+def test_port_runs_without_cama_tpu(tmp_path):
+    proc = _run_child(_CHILD_NO_CAMA_TPU, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_CAMA_TPU_OK" in proc.stdout
+
+
+def _port_sources():
+    """Every Python file of the port and chip_smoke.py, by path."""
+    pkg = os.path.join(REPO, "cama_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    return sorted(paths)
+
+
+def test_port_sources_never_load_cama_tpu():
+    """No import of the JAX package, and no loading of its files by path,
+    in the port or in chip_smoke.py."""
+    imports = re.compile(r"^\s*(from\s+cama_tpu(\.\S+)?\s+import|"
+                         r"import\s+cama_tpu(\.|\s|$|,))")
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if imports.match(line) or "spec_from_file_location" in line:
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}: "
+                                     f"{line.strip()}")
+    assert not offenders, offenders
+    assert imports.match("from cama_tpu.ops import lift")
+    assert imports.match("import cama_tpu")
+    assert not imports.match("from cama_tpu_torch.ops import lift")
 
 
 def test_port_sources_never_import_jax():
