@@ -6,11 +6,12 @@ release zip, and write the cama + nuScenes overlay videos.
 
 The device comes from --device, else cama_configs.device, else 'cuda'; the
 device lane from cama_configs.raster_kernel, else 'auto' (which serves
-'fused').
-Scenes are written one after another.  Not supported yet, and reported as
-failures: the `sites:` aggregation block, and scenes that still need the
-nuScenes -> clip conversion (convert them once with main.py; the JAX
-package's converter imports jax).
+'fused').  With two or more scenes and `batch_scenes` (default true),
+scenes of one output size are written together through
+MultiScenePipeline, as main.py does; otherwise one after another.  Not
+supported yet, and reported as failures: the `sites:` aggregation block,
+and scenes that still need the nuScenes -> clip conversion (convert them
+once with main.py; the JAX package's converter imports jax).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import zipfile
 
 from cama_tpu_torch.config import load_config
 from cama_tpu_torch.io.scene import DEFAULT_CAMA_CONFIGS
-from cama_tpu_torch.pipeline import ClipPipeline
+from cama_tpu_torch.pipeline import ClipPipeline, MultiScenePipeline
 
 
 def _extract_all_labels(zip_filepath, scene_names, dest_dir):
@@ -81,12 +82,18 @@ def run(configs, device="cuda"):
                   "cama video", flush=True)
 
     failures = []
+    to_write = []  # (scene_name, pipeline, {source: video_path})
     for scene_name in scene_names:
         item = _isolated(scene_name, failures, _prepare_scene, configs,
                          scene_name, output_dir, output_video_dir, device)
         if item is not None and item[2]:
-            _isolated(scene_name, failures, _write_scene_videos, configs,
-                      *item, first_frame_cb(scene_name))
+            to_write.append(item)
+    if configs.get("batch_scenes", True) and len(to_write) > 1:
+        failures += _write_batched(configs, to_write, first_frame_cb)
+    else:
+        for item in to_write:
+            _isolated(item[0], failures, _write_scene_videos, configs, *item,
+                      first_frame_cb(item[0]))
     if configs.get("sites"):
         failures.append(("sites", "site aggregation is not supported by "
                                   "cama_tpu_torch yet"))
@@ -120,9 +127,10 @@ def _prepare_scene(configs, scene_name, output_dir, output_video_dir,
 
 def _write_scene_videos(configs, scene_name, pipe, paths, on_first_frame=None):
     """One pass over the clip writes every source's video."""
+    modes = ", ".join(f"{src} {pipe.serving_mode(src)[0]}" for src in paths)
     print(f"[{scene_name}] generating reprojection videos "
           f"({', '.join(paths)} labels) on {pipe.device}, raster_kernel "
-          f"{pipe.raster_kernel!r}...")
+          f"{pipe.raster_kernel!r}, serving {modes}...")
     t0 = time.perf_counter()
     counts = pipe.write_videos(paths, preset=configs.get("video_preset"),
                                on_first_frame=on_first_frame)
@@ -131,6 +139,44 @@ def _write_scene_videos(configs, scene_name, pipe, paths, on_first_frame=None):
         print(f"  {counts[source]} frames -> {out}")
     total = sum(counts.values())
     print(f"  {total} video-frames in {dt:.1f}s ({total / max(dt, 1e-9):.1f} fps)")
+
+
+def _write_batched(configs, items, first_frame_cb):
+    """Scene-batched video writing: groups scenes by output size and writes
+    each group of two or more through MultiScenePipeline (one raster stage
+    per chunk for all of the group's scenes); a scene alone in its group
+    is written by itself.  Returns failures."""
+    failures = []
+    groups = {}
+    for item in items:
+        groups.setdefault(item[1].scene.output_size, []).append(item)
+    for size, group in groups.items():
+        if len(group) == 1:
+            _isolated(group[0][0], failures, _write_scene_videos, configs,
+                      *group[0], first_frame_cb(group[0][0]))
+            continue
+        names = [g[0] for g in group]
+        print(f"Batching {len(group)} scenes at {size[1]}x{size[0]} through "
+              f"one device program per chunk: {', '.join(names)}")
+
+        def write_group(group=group, names=names):
+            msp = MultiScenePipeline([g[1] for g in group],
+                                     chunk=group[0][1].chunk)
+            t0 = time.perf_counter()
+            counts = msp.write_videos(
+                [g[2] for g in group], preset=configs.get("video_preset"),
+                on_first_frame=first_frame_cb("+".join(names)))
+            dt = time.perf_counter() - t0
+            total = 0
+            for (scene_name, _, paths), cnt in zip(group, counts):
+                for source, out in paths.items():
+                    print(f"  [{scene_name}] {cnt[source]} frames -> {out}")
+                total += sum(cnt.values())
+            print(f"  {total} video-frames in {dt:.1f}s "
+                  f"({total / max(dt, 1e-9):.1f} fps, scene-batched)")
+
+        _isolated(names, failures, write_group)
+    return failures
 
 
 def main(argv=None):

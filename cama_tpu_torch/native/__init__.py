@@ -61,10 +61,15 @@ def _load():
         if not _tried:
             lib = _build_and_load()
             if lib is not None:
-                i64, i32, u8p = (ctypes.c_int64, ctypes.c_int32,
-                                 ctypes.POINTER(ctypes.c_uint8))
+                i64, i32, u8p, i32p = (ctypes.c_int64, ctypes.c_int32,
+                                       ctypes.POINTER(ctypes.c_uint8),
+                                       ctypes.POINTER(ctypes.c_int32))
                 for fn in (lib.cama_composite, lib.cama_composite_packed2):
                     fn.argtypes = [u8p, i64, u8p, i64, u8p, i32, i32, u8p, i64]
+                lib.cama_paint_sparse.argtypes = [i32p, i64, u8p, i32, i32,
+                                                  u8p, i64]
+                for fn in (lib.cama_composite, lib.cama_composite_packed2,
+                           lib.cama_paint_sparse):
                     fn.restype = None
             _lib, _tried = lib, True
     return _lib
@@ -143,4 +148,22 @@ def composite_packed2(base, packed2, color_table, out, width):
                                packed2.strides[0],
                                _u8p(_pad_table(color_table)), h, width,
                                _u8p(out), out_stride)
+    return out
+
+
+def paint_sparse(vals, count, color_table, width, out):
+    """Order-exact cv2.circle(radius=2) paint of a sparse list (the first
+    `count` entries of ops/raster.py compact_points' encodings) onto `out`,
+    which already holds base pixels and may be a mosaic slot view.  Writes
+    the same bytes as ops.raster.paint_sparse_host."""
+    lib = _load()
+    n = int(count)
+    if n <= 0:
+        return out
+    v = np.ascontiguousarray(vals[:n], dtype=np.int32)
+    h = out.shape[0]
+    out_stride = _check_hw3(out, h, out.shape[1], "out")
+    lib.cama_paint_sparse(v.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                          n, _u8p(_pad_table(color_table)), h, width,
+                          _u8p(out), out_stride)
     return out

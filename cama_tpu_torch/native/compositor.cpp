@@ -1,11 +1,11 @@
 // Native host compositor of cama_tpu_torch: the hot host-side loop of the
-// video path (a copy of cama_tpu/native/compositor.cpp, less the sparse
-// paint, which the port does not serve).
+// video path (a copy of cama_tpu/native/compositor.cpp).
 //
-// The device rasterizes; the host only has to (a) copy the cached
-// undistorted base image and (b) recolor the painted pixels given a [H, W]
-// uint8 class raster, in one streaming pass per camera that writes straight
-// into the video mosaic slot.
+// The device rasterizes or compacts; the host only has to (a) copy the
+// cached undistorted base image and (b) recolor the painted pixels given a
+// [H, W] uint8 class raster, in one streaming pass per camera that writes
+// straight into the video mosaic slot, or paint a sparse point list onto
+// the copied base.
 //
 // Exposed via ctypes.  The Python wrapper (cama_tpu_torch/native/__init__.py)
 // builds this file with g++ on first use into build/cama_tpu_torch/ and
@@ -96,6 +96,37 @@ void cama_composite_packed2(const uint8_t *base, int64_t base_stride,
           p[2] = c[2];
         }
       }
+    }
+  }
+}
+
+// Sparse variant: paint compacted encoded points (cama_tpu_torch/ops/raster.py
+// compact_points) with the cv2 radius-2 disk footprint, in order — exact
+// cv2.circle last-drawn-wins semantics (paint_sparse_host).  `vals` holds
+// n entries of (v * width + u) * 8 + cls (-1 entries are skipped).  `out`
+// must already hold base pixels.  width/height describe the camera image;
+// out_stride lets `out` be a mosaic slot view.
+void cama_paint_sparse(const int32_t *vals, int64_t n, const uint8_t *table,
+                       int height, int width, uint8_t *out,
+                       int64_t out_stride) {
+  // cv2.circle(radius=2) footprint: the 13-pixel L1 ball (ops/raster.py)
+  static const int8_t DY[13] = {-2, -1, -1, -1, 0, 0, 0, 0, 0, 1, 1, 1, 2};
+  static const int8_t DX[13] = {0, -1, 0, 1, -2, -1, 0, 1, 2, -1, 0, 1, 0};
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t v = vals[i];
+    if (v < 0) continue;
+    const uint8_t *c = table + (v & 7) * 3;
+    const int32_t pix = v >> 3;  // vals encode with MAX_CLS == 8
+    const int py = pix / width;
+    const int px = pix - py * width;
+    for (int s = 0; s < 13; ++s) {
+      const int yy = py + DY[s];
+      const int xx = px + DX[s];
+      if (yy < 0 || yy >= height || xx < 0 || xx >= width) continue;
+      uint8_t *p = out + yy * out_stride + xx * 3;
+      p[0] = c[0];
+      p[1] = c[1];
+      p[2] = c[2];
     }
   }
 }

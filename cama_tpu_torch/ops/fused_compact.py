@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from cama_tpu_torch.ops.geometry import check_frame_inputs, project_frames, route
-from cama_tpu_torch.ops.raster import MAX_CLS, rasterize_from_compact
+from cama_tpu_torch.ops.raster import (MAX_CLS, compact_rows,
+                                       rasterize_from_compact)
 
 # launches of each CUDA entry point, counted by its wrapper (plain-version
 # calls on CPU tensors do not count)
@@ -155,13 +156,43 @@ def count_union(points, valid, cls, A, B, frame_valid, width, height,
                    width, height, crop_lo, crop_hi)[1]
 
 
+def _live_entries(vals, count):
+    """[..., K, C] bool: the entries of the union list that a camera keeps,
+    on rows below count (rows past it are unspecified on the card)."""
+    rows = torch.arange(vals.shape[-2], dtype=torch.int32, device=vals.device)
+    return (rows[:, None] < count[..., None, None]) & (vals > 0)
+
+
+def sparse_from_union(vals, count, k):
+    """The sparse lane's lists from the union list: per (frame, camera), a
+    stable compaction of the entries that camera keeps to k slots.
+
+    vals [F, K, C] int32 and count [F] from fused_compact_project (with
+    count <= K: an overflowed union list is incomplete).  Returns
+    vals [F, C, k] int32 (encodings pix * MAX_CLS + cls in point order, -1
+    past the count) and counts [F, C] int32, the per-camera totals (count
+    > k: the first k entries are kept).  Equals ops.raster.compact_points
+    over project_frames' projection of the same points, which the JAX
+    package's sparse program (cama_tpu/pipeline.py:_project_compact_chunk)
+    computes; it works over the K union rows instead of all P points."""
+    F, K, C = vals.shape
+    live = _live_entries(vals, count).transpose(1, 2).reshape(F * C, K)
+    enc = (vals - 1).transpose(1, 2).reshape(F * C, K)
+    lists = compact_rows(enc, live, k).reshape(F, C, k)
+    return lists, live.sum(dim=-1, dtype=torch.int32).reshape(F, C)
+
+
+def camera_counts(vals, count):
+    """Per-camera effective counts [F, C] int32 of a union list
+    vals [F, K, C] with union counts count [F] <= K."""
+    return _live_entries(vals, count).sum(dim=-2, dtype=torch.int32)
+
+
 def rasterize_from_union(vals, count, width, height):
     """Dense packed raster [..., C, H, W] int32 from the union list
     vals [..., K, C] int32 and count [...]: rows >= count and zero entries
     become -1 (absent), then ops.raster.rasterize_from_compact paints with
     the row index as priority."""
-    K = vals.shape[-2]
-    rows = torch.arange(K, dtype=torch.int32, device=vals.device)
-    live = rows[:, None] < count[..., None, None]
-    cvals = torch.where(live & (vals > 0), vals - 1, -1).transpose(-1, -2)
+    cvals = torch.where(_live_entries(vals, count), vals - 1,
+                        -1).transpose(-1, -2)
     return rasterize_from_compact(cvals.contiguous(), width, height)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from cama_tpu_torch.ops.lift import CROP_BOX
+from cama_tpu_torch.ops.raster import compact_rows
 from cama_tpu_torch.se3 import apply_seek, seek_indices
 
 MAX_CAM = 8  # cameras per frame the projection kernels hold on chip
@@ -117,21 +118,71 @@ def project_frames(points, valid, A, B, frame_valid, width, height, crop_lo,
         vu [F, C, P, 2] f32 (v, u) and keep [F, C, P] bool — crop & z > 0 &
         in-bounds & valid & frame_valid.
     """
+    ok = crop_mask(points, valid, A, frame_valid, crop_lo, crop_hi)
+    vu, keep = _camera_pixels(B, points[:, 0], points[:, 1], points[:, 2],
+                              width, height)
+    return vu, keep & ok[:, None, :]
+
+
+def crop_mask(points, valid, A, frame_valid, crop_lo, crop_hi):
+    """[F, P] bool: the valid points of the valid frames inside the
+    inclusive chassis crop box, with project_frames' elementwise order."""
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    ok = valid[None, :] & frame_valid[:, None]             # [F, P]
+    ok = valid[None, :] & frame_valid[:, None]
     for r in range(3):
         cr = _row(A[:, r], x, y, z)
         ok = ok & (cr >= float(crop_lo[r])) & (cr <= float(crop_hi[r]))
-    px = _row(B[:, :, 0], x, y, z)                         # [F, C, P]
+    return ok
+
+
+def _camera_pixels(B, x, y, z, width, height):
+    """(vu [F, C, N, 2], keep [F, C, N]: z > 0 and in the image) of points
+    x, y, z (each [N], or [F, 1, N]) under B [F, C, 3, 4]."""
+    px = _row(B[:, :, 0], x, y, z)
     py = _row(B[:, :, 1], x, y, z)
     pz = _row(B[:, :, 2], x, y, z)
     mask_z = pz > 0
     safe_z = torch.where(mask_z, pz, torch.ones_like(pz))
     u = px / safe_z
     v = py / safe_z
-    keep = (mask_z & (u >= 0) & (u < width) & (v >= 0) & (v < height)
-            & ok[:, None, :])
+    keep = mask_z & (u >= 0) & (u < width) & (v >= 0) & (v < height)
     return torch.stack([v, u], dim=-1), keep
+
+
+def crop_compact_project_idx(points, valid, A, B, frame_valid, width, height,
+                             crop_lo, crop_hi, k1):
+    """Two-stage stages 1 and 2 for a chunk of frames: the camera-
+    independent crop test, a stable compaction of its survivors to k1
+    slots per frame, then the camera projection of those survivors only.
+    Counterpart of cama_tpu/ops/geometry.py:crop_compact_project_idx (one
+    frame there, F here), with project_frames' elementwise order, so a
+    survivor keeps exactly the pixel and keep bits project_frames gives it.
+
+    Returns (vu [F, C, k1, 2], keep [F, C, k1], idx [F, k1] int64 point
+    indices in original order; padding slots carry index 0 with keep
+    False, and survivors past k1 are dropped) and the crop count [F]
+    int32, which callers hold against k1."""
+    sel = crop_mask(points, valid, A, frame_valid, crop_lo, crop_hi)
+    P = points.shape[0]
+    order = torch.arange(P, dtype=torch.int32, device=points.device)
+    idx = compact_rows(order.expand(sel.shape[0], P), sel, k1)
+    sel_valid = idx >= 0
+    idx = torch.where(sel_valid, idx, 0).to(torch.int64)
+    pts = points[idx]                                      # [F, k1, 3]
+    vu, keep = _camera_pixels(B, pts[:, None, :, 0], pts[:, None, :, 1],
+                              pts[:, None, :, 2], width, height)
+    return (vu, keep & sel_valid[:, None, :], idx,
+            sel.sum(dim=-1, dtype=torch.int32))
+
+
+def crop_compact_project(points, valid, cls, A, B, frame_valid, width, height,
+                         crop_lo, crop_hi, k1):
+    """crop_compact_project_idx with the class ids gathered through the
+    selection: (vu [F, C, k1, 2], keep [F, C, k1], cls_sel [F, k1], crop
+    count [F])."""
+    vu, keep, idx, n_crop = crop_compact_project_idx(
+        points, valid, A, B, frame_valid, width, height, crop_lo, crop_hi, k1)
+    return vu, keep, cls[idx], n_crop
 
 
 def check_frame_inputs(points, valid, A, B, frame_valid, cls=None):

@@ -161,6 +161,72 @@ def rasterize_from_compact(vals, width, height):
     return _scatter_dilate(pix, prio, width, height, vals.shape[:-1])
 
 
+def compact_points_host(vu, keep, cls, width, height, k):
+    """NumPy mirror of compact_points (a copy of
+    cama_tpu/ops/raster.py:compact_points_host): the same encoding,
+    consecutive-duplicate suppression and paint order, so paint_sparse_host
+    draws identical overlays from either producer.
+
+    vu [..., P, 2] float32, keep [..., P] bool, cls [P] ->
+    (vals [..., k] int32 with -1 padding, counts [...] int32; counts > k
+    signals overflow exactly like compact_points)."""
+    vu = np.asarray(vu)
+    keep = np.asarray(keep, bool)
+    cls = np.asarray(cls)
+    vi = vu[..., 0].astype(np.int32)
+    ui = vu[..., 1].astype(np.int32)
+    enc = (vi * width + ui) * MAX_CLS + cls
+    enc = np.where(keep, enc, -1)
+    pix = enc // MAX_CLS
+    dup = np.concatenate(
+        [keep[..., 1:] & keep[..., :-1] & (pix[..., 1:] == pix[..., :-1]),
+         np.zeros_like(keep[..., :1])],
+        axis=-1,
+    )
+    eff = keep & ~dup
+    counts = eff.sum(axis=-1).astype(np.int32)
+    batch = keep.shape[:-1]
+    P = keep.shape[-1]
+    vals = np.full(batch + (k,), -1, np.int32)
+    flat_eff = eff.reshape(-1, P)
+    flat_enc = enc.reshape(-1, P)
+    flat_vals = vals.reshape(-1, k)
+    for r in range(flat_eff.shape[0]):
+        kept = flat_enc[r][flat_eff[r]]
+        n = min(len(kept), k)
+        flat_vals[r, :n] = kept[:n]
+    return vals, counts
+
+
+def paint_sparse_host(image_bgr, vals, count, color_table, width):
+    """Paint a sparse list (compact_points' encodings, in paint order) onto
+    a host image with cv2.circle(radius=2)'s footprint, last drawn wins:
+    the stencil indices are laid out point-major, so NumPy's sequential
+    fancy assignment reproduces draw order (a copy of
+    cama_tpu/ops/raster.py:paint_sparse_host)."""
+    n = int(count)
+    if n <= 0:
+        return image_bgr
+    v = np.asarray(vals[:n])
+    enc = v[v >= 0]
+    if len(enc) == 0:
+        return image_bgr
+    cls = enc % MAX_CLS
+    pix = enc // MAX_CLS
+    py = pix // width
+    px = pix % width
+    h, w = image_bgr.shape[:2]
+    offs = CIRCLE_R2_OFFSETS
+    yy = py[:, None] + offs[None, :, 0]  # [n, 13] point-major
+    xx = px[:, None] + offs[None, :, 1]
+    ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    flat = (yy * w + xx)[ok]
+    colors = np.broadcast_to(color_table[cls][:, None, :],
+                             (len(enc), len(offs), 3))[ok]
+    image_bgr.reshape(-1, 3)[flat] = colors
+    return image_bgr
+
+
 def packed_to_cls(packed):
     """Packed raster -> uint8 class raster (0 = unpainted, else class_id +
     1): the format that crosses device -> host for compositing."""

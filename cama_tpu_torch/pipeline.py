@@ -1,32 +1,47 @@
-"""Per-clip orchestration on PyTorch: overlay videos from a compiled scene.
+"""Per-clip orchestration on PyTorch: overlay videos from compiled scenes.
 
-Counterpart of cama_tpu/pipeline.py's single-scene dense path.  Per chunk of
-frames, one device program of the pipeline's raster_kernel lane turns the
-scene's points into class rasters:
+Counterpart of cama_tpu/pipeline.py's ClipPipeline and MultiScenePipeline.
+A counting pass per source (ClipPipeline.overlay_mode) sizes the lists and
+picks the serving mode, as the JAX package does: 'sparse' when a
+per-camera point list of k entries costs fewer link bytes than the dense
+raster, else 'raster'.
+
+The sparse program (one per chunk of frames) ships each camera's
+deduplicated kept points, compacted in paint order, to the host, which
+paints them onto the base images; there is no device raster.  The dense
+program turns the points into class rasters.  Both run the pipeline's
+raster_kernel lane:
 
   'fused'    the fused CUDA kernel (project + crop + dedup + stable
-             compaction, ops/fused_compact.py) -> union list
+             compaction, ops/fused_compact.py) -> union list, split per
+             camera for the sparse lane
   'pallas'   the CUDA projection kernel (ops/pallas_project.py), then the
              per-camera dedup + stable compaction (ops/raster.py)
-  'compact'  the same program with the plain projection (ops/geometry.py)
-  'scatter'  the plain projection, every kept point scattered, no list
+  'compact'  the same program with the plain projection (ops/geometry.py);
+             dense: crop-first two-stage compaction when the crop culls
+             at least half the points
+  'scatter'  the plain projection; dense: every kept point scattered, no
+             list
 
-then a scatter-max at the list's centres and two plus-stencil dilations
-(ops/raster.py), and ships uint8 class rasters (2-bit packed when the
-classes fit) to the host, where base images are undistorted once per frame
-and composited into the 3x2 video mosaic.  Every lane keeps the same points
-and paints them in the same order, so all four give the same rasters.
+A dense list becomes rasters by a scatter-max at its centres and two
+plus-stencil dilations (ops/raster.py); uint8 class rasters (2-bit packed
+when the classes fit) go to the host, where base images are undistorted
+once per frame and composited into the 3x2 video mosaic.  Every lane keeps
+the same points and paints them in the same order, so all of them, sparse
+or dense, give the same frames.  MultiScenePipeline serves several scenes'
+dense rasters with one raster stage per chunk over all of them.
 
 The device is explicit: `device='cuda'` runs the kernels and raises without
 a card; `device='cpu'` runs the plain PyTorch versions (what the tests do).
-Scenes are written one after another; the JAX package's multi-scene batch,
-sparse serving mode and adaptive warm-up lane are not part of this package.
+The JAX package's adaptive warm-up lane and its counts sidecar are not part
+of this package.
 """
 from __future__ import annotations
 
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -42,13 +57,17 @@ from cama_tpu_torch.io.scene import (
 )
 from cama_tpu_torch.io.video import CAMERA_GRID, VideoSink
 from cama_tpu_torch.ops.fused_compact import (
+    camera_counts,
     count_union,
     fused_compact_project,
     rasterize_from_union,
+    sparse_from_union,
 )
 from cama_tpu_torch.ops.geometry import (
     compose_frame_matrices,
     crop_bounds,
+    crop_compact_project,
+    crop_mask,
     project_frames,
 )
 from cama_tpu_torch.ops.pallas_project import project_frame_pallas
@@ -56,10 +75,11 @@ from cama_tpu_torch.ops.raster import (
     CIRCLE_R2_OFFSETS,
     MAX_CLS,
     build_color_table,
+    _encode_effective,
     compact_points,
-    effective_counts,
     pack_cls_2bit,
     packed_to_cls,
+    paint_sparse_host,
     rasterize_from_compact,
     rasterize_packed_fast,
     unpack_cls_2bit,
@@ -147,42 +167,65 @@ def _host_overlay_chunk(points, valid, cls, A, B, fv, lo, hi, width, height):
     return np.stack(rasters)
 
 
-def _overlay_chunk_fused(points, valid, cls, A, B, frame_valid, crop_lo,
-                         crop_hi, width, height, k_cap, two_bit):
-    """One chunk of F frames -> (class rasters [F, C, H, W] uint8, or 2-bit
-    packed [F, C, H, ceil(W/4)], and the union counts [F] int32)."""
-    vals, count = fused_compact_project(points, valid, cls, A, B, frame_valid,
-                                        width, height, crop_lo, crop_hi, k_cap)
-    rasters = packed_to_cls(rasterize_from_union(vals, count, width, height))
-    return (pack_cls_2bit(rasters) if two_bit else rasters), count
-
-
-def _compact_raster(vu, keep, cls, width, height, k, two_bit):
-    """Projection -> per-camera compaction to k entries -> rasters.
-    Returns (class rasters, packed when two_bit, and the largest per-camera
-    survivor count [F] int32)."""
+def _chunk_lists(lane, points, valid, cls, A, B, frame_valid, crop_lo,
+                 crop_hi, width, height, k):
+    """The list half of a lane's dense program over one chunk of F frames:
+    'fused' -> (union list [F, k, C], union count [F]) from the fused
+    kernel; 'pallas'/'compact' -> (per-camera lists [F, C, k], the largest
+    per-camera count [F]) from the lane's projection and compact_points.
+    Counts are true totals, so count > k reports an overflowed list."""
+    if lane == "fused":
+        return fused_compact_project(points, valid, cls, A, B, frame_valid,
+                                     width, height, crop_lo, crop_hi, k)
+    vu, keep = _LANE_PROJECTIONS[lane](points, valid, A, B, frame_valid,
+                                       width, height, crop_lo, crop_hi)
     vals, counts = compact_points(vu, keep, cls, width, height, k)
-    rasters = packed_to_cls(rasterize_from_compact(vals, width, height))
-    return (pack_cls_2bit(rasters) if two_bit else rasters), counts.amax(-1)
+    return vals, counts.amax(-1)
 
 
-def _overlay_chunk_pallas(points, valid, cls, A, B, frame_valid, crop_lo,
-                          crop_hi, width, height, k, two_bit):
-    """The 'pallas' lane: one launch of the CUDA projection kernel for the
-    chunk, then compaction and the compact rasterizer.  Returns (rasters,
-    counts [F])."""
-    vu, keep = project_frame_pallas(points, valid, A, B, frame_valid, width,
-                                    height, crop_lo, crop_hi)
-    return _compact_raster(vu, keep, cls, width, height, k, two_bit)
+def _lists_to_rasters(lane, vals, count, width, height, two_bit):
+    """The raster half: a scatter-max at the lists' centres, the two
+    dilations, then uint8 class rasters [..., C, H, W] (2-bit packed
+    [..., C, H, ceil(W/4)] when two_bit).  Any leading batch shape."""
+    packed = (rasterize_from_union(vals, count, width, height)
+              if lane == "fused" else rasterize_from_compact(vals, width, height))
+    rasters = packed_to_cls(packed)
+    return pack_cls_2bit(rasters) if two_bit else rasters
 
 
-def _overlay_chunk_compact(points, valid, cls, A, B, frame_valid, crop_lo,
-                           crop_hi, width, height, k, two_bit):
-    """The 'compact' lane (single stage): the 'pallas' program with the
-    plain projection.  Returns (rasters, counts [F])."""
-    vu, keep = project_frames(points, valid, A, B, frame_valid, width, height,
-                              crop_lo, crop_hi)
-    return _compact_raster(vu, keep, cls, width, height, k, two_bit)
+def _overlay_chunk_lists(lane, points, valid, cls, A, B, frame_valid, crop_lo,
+                         crop_hi, width, height, k, two_bit):
+    """A list lane's dense program: one chunk of F frames -> (class
+    rasters, and the list counts [F] to hold against k)."""
+    vals, count = _chunk_lists(lane, points, valid, cls, A, B, frame_valid,
+                               crop_lo, crop_hi, width, height, k)
+    return _lists_to_rasters(lane, vals, count, width, height, two_bit), count
+
+
+# 'fused': the fused CUDA kernel (k = the union cap); 'pallas': one launch
+# of the CUDA projection kernel per chunk, then compaction; 'compact'
+# (single stage): the 'pallas' program with the plain projection
+_overlay_chunk_fused = partial(_overlay_chunk_lists, "fused")
+_overlay_chunk_pallas = partial(_overlay_chunk_lists, "pallas")
+_overlay_chunk_compact = partial(_overlay_chunk_lists, "compact")
+
+
+def _overlay_chunk_two_stage(points, valid, cls, A, B, frame_valid, crop_lo,
+                             crop_hi, width, height, k1, k2, two_bit):
+    """The 'compact' lane with crop-first compaction: the crop test is
+    camera-independent, so each frame's crop survivors are compacted once
+    to k1 slots, and the per-camera dedup and compaction run over k1
+    entries instead of P.  Both compactions are stable, so the rasters equal
+    the single-stage lane's.  Returns (rasters, counts [F, 2]: the crop
+    count, held against k1, and the largest per-camera count, against
+    k2)."""
+    vu, keep, cls_sel, n_crop = crop_compact_project(
+        points, valid, cls, A, B, frame_valid, width, height, crop_lo,
+        crop_hi, k1)
+    vals, counts = compact_points(vu, keep, cls_sel[:, None, :], width,
+                                  height, k2)
+    rasters = _lists_to_rasters("compact", vals, None, width, height, two_bit)
+    return rasters, torch.stack([n_crop, counts.amax(-1)], dim=-1)
 
 
 def _overlay_chunk(points, valid, cls, A, B, frame_valid, crop_lo, crop_hi,
@@ -198,11 +241,58 @@ def _overlay_chunk(points, valid, cls, A, B, frame_valid, crop_lo, crop_hi,
     return (pack_cls_2bit(rasters) if two_bit else rasters), kept
 
 
-_LIST_PROGRAMS = {"fused": _overlay_chunk_fused,
-                  "pallas": _overlay_chunk_pallas,
-                  "compact": _overlay_chunk_compact}
+def _project_compact_chunk(points, valid, cls, A, B, frame_valid, crop_lo,
+                           crop_hi, width, height, k, lane="compact",
+                           k_cap=None):
+    """The sparse program over one chunk of F frames: per (frame, camera),
+    the deduplicated kept points compacted to k slots in paint order, with
+    no raster.  'fused' runs the fused kernel at the union cap k_cap and
+    splits its union list per camera (ops.fused_compact.sparse_from_union);
+    'pallas' runs the CUDA projection kernel, the other lanes the plain
+    projection (the JAX package's program), each then compact_points.
+
+    Returns (vals [F, C, k] int32, counts [F, C] int32 — count > k: the
+    frame falls back to its dense raster — and, for 'fused', the union
+    count [F], held against k_cap; None for the other lanes)."""
+    if lane == "fused":
+        union, count = fused_compact_project(points, valid, cls, A, B,
+                                             frame_valid, width, height,
+                                             crop_lo, crop_hi, k_cap)
+        return (*sparse_from_union(union, count, k), count)
+    vu, keep = _LANE_PROJECTIONS.get(lane, project_frames)(
+        points, valid, A, B, frame_valid, width, height, crop_lo, crop_hi)
+    return (*compact_points(vu, keep, cls, width, height, k), None)
+
+
 _LANE_PROJECTIONS = {"pallas": project_frame_pallas,
                      "compact": project_frames}
+
+
+def _fetch_async(tensors, on_card):
+    """Queue the copies of `tensors` into pinned host buffers with one CUDA
+    event marking their arrival: (host tensors, event).  CPU tensors are
+    handed through with no event."""
+    if not on_card:
+        return tuple(tensors), None
+    hosts = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                  for t in tensors)
+    for host, t in zip(hosts, tensors):
+        host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return hosts, done
+
+
+def _check_lists(label, lane, s, count, limit):
+    """Raise when a frame of the chunk starting at frame s keeps more list
+    rows than its list holds.  count [F] or [F, n] against limit, a size or
+    n sizes."""
+    over = np.asarray(count > limit).reshape(len(count), -1).any(-1)
+    if over.any():
+        f = int(np.argmax(over))
+        raise RuntimeError(
+            f"{label}: frame {s + f} keeps {count[f]} list rows, over the "
+            f"{lane} list size k={limit}")
 
 
 def _close_all_sinks(sinks):
@@ -237,8 +327,7 @@ class ClipPipeline:
         'fused', the JAX package's production preference once its warm-up
         is done: cama_tpu's 'auto' streams a host lane only to hide XLA's
         compile wall, and PyTorch runs eagerly with no such wall.
-        'compact' is single-stage; the rasters equal the JAX package's
-        two-stage form.  device: 'cuda' runs the CUDA kernels and raises
+        device: 'cuda' runs the CUDA kernels and raises
         when no card is present; 'cpu' runs their plain PyTorch
         versions."""
         self.configs = {**DEFAULT_CAMA_CONFIGS, **(configs or {})}
@@ -277,7 +366,10 @@ class ClipPipeline:
         self._fcache_lock = threading.Lock()
         self._fm = {}
         self._dev = {}
-        self._k = {}
+        self._mode = {}       # source -> ('sparse' | 'raster', k)
+        self._fused_k = {}    # source -> the fused kernel's union cap
+        self._two_stage = {}  # source -> k1 of the two-stage split, or None
+        self._k = {}          # source -> the lane's dense list size
         self._crop_lo, self._crop_hi = crop_bounds()
         self._color_tables = {
             src: build_color_table(self.scene.flat[src].class_names)
@@ -321,103 +413,148 @@ class ClipPipeline:
     # ---------------- device passes ----------------
 
     def overlay_mode(self, source):
-        """('raster', k): the list size of this pipeline's lane, from a
-        counting pass over every chunk with the lane's own projection — the
-        fused kernel's union count, or the largest per-camera deduped count
-        of the 'pallas' kernel or the plain projection — rounded to the
-        power of two >= the largest count, at least 1024, at most P.  The
-        'scatter' lane has no list: every kept point scatters, so k = P."""
-        if source not in self._k:
-            st = self.scene_tensors(source)
-            P = int(st.points.shape[0])
-            h, w = self.scene.output_size
-            lane = self.raster_kernel
-            if lane == "scatter":
-                self._k[source] = P
-                return "raster", P
-            top = 0
-            for s in range(0, st.A.shape[0], self.chunk):
-                sl = slice(s, s + self.chunk)
-                if lane == "fused":
-                    cnt = count_union(st.points, st.valid, st.cls, st.A[sl],
-                                      st.B[sl], st.frame_valid[sl], w, h,
-                                      self._crop_lo, self._crop_hi)
-                else:
-                    vu, keep = _LANE_PROJECTIONS[lane](
-                        st.points, st.valid, st.A[sl], st.B[sl],
-                        st.frame_valid[sl], w, h, self._crop_lo,
-                        self._crop_hi)
-                    cnt = effective_counts(vu, keep, st.cls, w, h)
-                top = max(top, int(cnt.max()))
-            self._k[source] = _pow2_cap(top, P)
-        return "raster", self._k[source]
+        """('sparse' or 'raster', k), from a counting pass over every chunk:
+        the JAX package's decision (cama_tpu/pipeline.py:overlay_mode and
+        _finish_overlay_mode) on the port's own counts.
+
+        The pass measures the three maxima over frames of the JAX
+        _count_chunk: the crop count, the largest per-camera effective
+        (deduplicated) count mc and the union count over cameras, with this
+        lane's projection.  On 'fused', count_union sizes one
+        fused_compact_project launch per chunk whose union list gives the
+        per-camera counts; the other lanes project all P points.  Then
+        k = pow2(mc) (the power of two >= mc, at least 1024, at most P);
+        the fused kernel's union cap _fused_k = pow2(union); the two-stage
+        split _two_stage = pow2(crop) when that culls at least half the
+        points, else None; and 'sparse' when k * 4 bytes per camera beat the
+        dense raster's bytes on the link.  _k is the list size of the
+        lane's dense program: the union cap for 'fused', k for 'pallas' and
+        'compact', P for 'scatter', which has no list."""
+        if source in self._mode:
+            return self._mode[source]
+        st = self.scene_tensors(source)
+        P = int(st.points.shape[0])
+        h, w = self.scene.output_size
+        geo = (w, h, self._crop_lo, self._crop_hi)
+        chunks = [slice(s, s + self.chunk)
+                  for s in range(0, st.A.shape[0], self.chunk)]
+
+        def frames(sl):
+            return (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                    st.frame_valid[sl])
+
+        crop = torch.cat([
+            crop_mask(st.points, st.valid, st.A[sl], st.frame_valid[sl],
+                      self._crop_lo, self._crop_hi).sum(-1, dtype=torch.int32)
+            for sl in chunks])
+        if self.raster_kernel == "fused":
+            union = torch.cat([count_union(*frames(sl), *geo) for sl in chunks])
+            cap = _pow2_cap(int(union.max()), P)
+            per_cam = torch.cat([
+                camera_counts(*fused_compact_project(*frames(sl), *geo, cap))
+                for sl in chunks])
+        else:
+            proj = _LANE_PROJECTIONS.get(self.raster_kernel, project_frames)
+            per_cam, union = [], []
+            for sl in chunks:
+                points, valid, cls, A, B, fv = frames(sl)
+                vu, keep = proj(points, valid, A, B, fv, *geo)
+                _, eff = _encode_effective(vu, keep, cls, w, h)
+                per_cam.append(eff.sum(-1, dtype=torch.int32))
+                union.append(eff.any(-2).sum(-1, dtype=torch.int32))
+            per_cam, union = torch.cat(per_cam), torch.cat(union)
+        mc_crop, mc, mc_union = (int(v) for v in torch.stack(
+            [crop.max(), per_cam.max(), union.max()]).tolist())
+        return self._finish_overlay_mode(source, mc_crop, mc, mc_union, P)
+
+    def _finish_overlay_mode(self, source, mc_crop, mc, mc_union, P):
+        """The counting maxima -> the (mode, k) decision, the union cap, the
+        two-stage split and the dense list size (overlay_mode)."""
+        h, w = self.scene.output_size
+        k = _pow2_cap(mc, P)
+        k1 = _pow2_cap(mc_crop, P)
+        self._fused_k[source] = _pow2_cap(mc_union, P)
+        # crop-first two-stage pays when the crop culls at least half the
+        # points (the JAX package's rule)
+        self._two_stage[source] = k1 if k1 * 2 <= P else None
+        self._k[source] = {"fused": self._fused_k[source],
+                           "scatter": P}.get(self.raster_kernel, k)
+        C = len(self.scene.camera_list)
+        # dense raster link cost: 2-bit packing only fits <= 3 class ids
+        dense_bytes = h * w * C // 4 if self._use_2bit(source) else h * w * C
+        self._mode[source] = ("sparse" if k * 4 * C < dense_bytes
+                              else "raster", k)
+        return self._mode[source]
+
+    def serving_mode(self, source):
+        """The mode write_videos and iter_frames serve: overlay_mode (the
+        JAX package's 'auto' warm-up lane is not ported: PyTorch has no
+        compile wall to hide)."""
+        return self.overlay_mode(source)
 
     def _use_2bit(self, source):
         fp = self.scene.flat[source]
         max_cls = int(fp.cls[fp.valid].max()) if fp.valid.any() else 0
         return max_cls <= 2  # raster values cls+1 must fit in 2 bits
 
+    def _dense_program(self, source, two_bit):
+        """(run, limit): run(frame slice) -> (class rasters, list counts) of
+        this lane's dense program over those frames, and the list size(s)
+        the counts are held against.  'compact' goes two-stage when the
+        counting pass engaged the split (k1, then k2 = min(k, k1))."""
+        st = self.scene_tensors(source)
+        h, w = self.scene.output_size
+        self.overlay_mode(source)
+        lane, k = self.raster_kernel, self._k[source]
+        k1 = self._two_stage[source] if lane == "compact" else None
+
+        def run(sl):
+            args = (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                    st.frame_valid[sl], self._crop_lo, self._crop_hi, w, h)
+            if lane == "scatter":
+                return _overlay_chunk(*args, two_bit)
+            if k1 is not None:
+                return _overlay_chunk_two_stage(*args, k1, min(k, k1), two_bit)
+            return _overlay_chunk_lists(lane, *args, k, two_bit)
+
+        return run, (k if k1 is None else np.asarray([k1, min(k, k1)]))
+
     def iter_overlay_rasters(self, source, max_in_flight=16, unpack=True):
         """Yield (image_idx, cls_raster [C, H, W] uint8 on host) per valid
-        frame.  Chunks are queued on the device ahead of consumption; each
-        chunk's rasters and counts are copied into pinned host buffers with
-        non_blocking copies, one CUDA event per chunk marks their arrival,
-        and at most `max_in_flight` chunks are pending at once.  Every
-        frame's list count is checked against the lane's k when its chunk is
-        drained (an overflowed list raises).
+        frame, from the lane's dense program.  Chunks are queued on the
+        device ahead of consumption; each chunk's rasters and counts are
+        copied into pinned host buffers with non_blocking copies, one CUDA
+        event per chunk marks their arrival, and at most `max_in_flight`
+        chunks are pending at once.  Every frame's list count is checked
+        against the lane's list size when its chunk is drained (an
+        overflowed list raises).
 
         unpack=False hands the 2-bit packed [C, H, ceil(W/4)] format
         through untouched (when the scene uses it) — the native mosaic
         compositor decodes it during the paint pass."""
         fm, _, _, _, F = self._chunked_AB(source)
         st = self.scene_tensors(source)
-        use_2bit = self._use_2bit(source)
-        h, w = self.scene.output_size
-        _, k = self.overlay_mode(source)
-        lane = self.raster_kernel
+        w = self.scene.output_size[1]
+        run, limit = self._dense_program(source, self._use_2bit(source))
         on_card = self.device.type == "cuda"
 
         def dispatch(sl):
             with self.timers.phase("device_dispatch"):
-                args = (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
-                        st.frame_valid[sl], self._crop_lo, self._crop_hi, w, h)
-                if lane == "scatter":
-                    rasters, count = _overlay_chunk(*args, use_2bit)
-                else:
-                    rasters, count = _LIST_PROGRAMS[lane](*args, k, use_2bit)
-                if not on_card:
-                    return rasters, count, None
-                r_host = torch.empty(rasters.shape, dtype=rasters.dtype,
-                                     pin_memory=True)
-                c_host = torch.empty(count.shape, dtype=count.dtype,
-                                     pin_memory=True)
-                r_host.copy_(rasters, non_blocking=True)
-                c_host.copy_(count, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                return r_host, c_host, done
+                return _fetch_async(run(sl), on_card)
 
         def drain(entry):
-            s, (rasters, count, done) = entry
+            s, ((rasters, count), done) = entry
             with self.timers.phase("raster_fetch"):
                 if done is not None:
                     done.synchronize()
-                count = count.numpy()
-                if (count > k).any():
-                    f = int(np.argmax(count))
-                    raise RuntimeError(
-                        f"{source}: frame {s + f} keeps {int(count[f])} list "
-                        f"rows, over the {lane} list size k={k}")
+                _check_lists(source, self.raster_kernel, s, count.numpy(),
+                             limit)
                 rasters = rasters.numpy()
                 if unpack and rasters.shape[-1] != w:
                     rasters = unpack_cls_2bit(rasters, w)  # [chunk, C, H, W]
-            out = []
-            for j in range(rasters.shape[0]):
-                fidx = s + j
-                if fidx >= F or not fm.frame_valid[fidx]:
-                    continue
-                out.append((int(fm.frame_indices[fidx]), rasters[j]))
-            return out
+            return [(int(fm.frame_indices[s + j]), rasters[j])
+                    for j in range(rasters.shape[0])
+                    if s + j < F and fm.frame_valid[s + j]]
 
         pending = []
         for s in range(0, st.A.shape[0], self.chunk):
@@ -426,6 +563,66 @@ class ClipPipeline:
                 yield from drain(pending.pop(0))
         for entry in pending:
             yield from drain(entry)
+
+    def iter_sparse_points(self, source, k=None, max_in_flight=16):
+        """The scatter-free stream: yields (image_idx, vals [C, k] int32,
+        counts [C]) per valid frame from the lane's sparse program
+        (_project_compact_chunk), with the copies of iter_overlay_rasters
+        (pinned, non_blocking, one CUDA event per chunk) under the phase
+        'sparse_fetch'.  A count > k means that camera's list overflowed:
+        the caller paints that frame from its dense raster
+        (_overlay_single).  On 'fused', the union list is held against its
+        cap at drain, and an overflow raises.  k defaults to the JAX
+        package's budget of about P / 3."""
+        fm, _, _, _, F = self._chunked_AB(source)
+        st = self.scene_tensors(source)
+        h, w = self.scene.output_size
+        P = int(st.points.shape[0])
+        if k is None:
+            k = min(P, max(4096, -(-(P // 3) // 1024) * 1024))
+        self.overlay_mode(source)
+        lane, k_cap = self.raster_kernel, self._fused_k[source]
+        on_card = self.device.type == "cuda"
+
+        def dispatch(sl):
+            with self.timers.phase("device_dispatch"):
+                vals, counts, union = _project_compact_chunk(
+                    st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                    st.frame_valid[sl], self._crop_lo, self._crop_hi, w, h,
+                    k, lane=lane, k_cap=k_cap)
+                out = (vals, counts) if union is None else (vals, counts, union)
+                return _fetch_async(out, on_card)
+
+        def drain(entry):
+            s, (out, done) = entry
+            with self.timers.phase("sparse_fetch"):
+                if done is not None:
+                    done.synchronize()
+                if len(out) == 3:
+                    _check_lists(source, lane, s, out[2].numpy(), k_cap)
+                vals, counts = out[0].numpy(), out[1].numpy()
+            return [(int(fm.frame_indices[s + j]), vals[j], counts[j])
+                    for j in range(vals.shape[0])
+                    if s + j < F and fm.frame_valid[s + j]]
+
+        pending = []
+        for s in range(0, st.A.shape[0], self.chunk):
+            pending.append((s, dispatch(slice(s, s + self.chunk))))
+            if len(pending) >= max_in_flight:
+                yield from drain(pending.pop(0))
+        for entry in pending:
+            yield from drain(entry)
+
+    def _overlay_single(self, source, image_idx):
+        """The dense class raster [C, H, W] uint8 of one frame, from the
+        lane's own dense program on a one-frame slice: the fallback for a
+        frame whose sparse list overflowed."""
+        fm = self.frame_matrices(source)
+        i = int(np.flatnonzero(fm.frame_indices == image_idx)[0])
+        run, limit = self._dense_program(source, False)
+        raster, count = run(slice(i, i + 1))
+        _check_lists(source, self.raster_kernel, i, count.cpu().numpy(), limit)
+        return raster[0].cpu().numpy()
 
     def iter_overlay_rasters_host(self, source):
         """Pure-host overlay stream in float64: (image_idx, cls_raster
@@ -578,6 +775,28 @@ class ClipPipeline:
         results = pool.map(one, items) if pool is not None else map(one, items)
         return dict(results)
 
+    def composite_frame_sparse(self, source, image_idx, vals, counts,
+                               pool=None, base=None, out=None):
+        """Sparse lists (vals [C, k], counts [C]) -> {camera: overlay
+        image} (host): each camera's list painted in order onto its base
+        pixels, by the native compositor or paint_sparse_host."""
+        table = self._color_tables[source]
+        w = self.scene.output_size[1]
+        use_native = _native.available()
+
+        def one(c_camera):
+            c, camera = c_camera
+            img = self._composite_base(camera, image_idx, base, out)
+            if use_native:
+                _native.paint_sparse(vals[c], counts[c], table, w, img)
+            else:
+                paint_sparse_host(img, vals[c], counts[c], table, w)
+            return camera, img
+
+        items = list(enumerate(self.scene.camera_list))
+        results = pool.map(one, items) if pool is not None else map(one, items)
+        return dict(results)
+
     def _grid_positions(self):
         """{camera: (row, col)} in the reference 3x2 mosaic, or None when the
         scene's cameras don't exactly fill it."""
@@ -588,12 +807,17 @@ class ClipPipeline:
             self._grid_pos = pos if set(cams) == set(pos) else None
         return self._grid_pos
 
-    def composite_mosaic_frame(self, source, image_idx, payload, base, mosaic,
-                               pool=None):
+    def composite_mosaic_frame(self, source, image_idx, payload, kind, base,
+                               mosaic, pool=None):
         """Native fused composite of one frame straight into the 3x2 video
         mosaic: each camera's base pixels and overlay colors are written to
-        its slot in one streaming pass.  payload: [C, H, W] uint8 class
-        rasters or the 2-bit packed [C, H, ceil(W/4)] format.
+        its slot.
+
+        kind 'raster': payload [C, H, W] uint8 class rasters, or the 2-bit
+        packed [C, H, ceil(W/4)] format (detected by width; the unpack is
+        fused into the paint).  kind 'sparse': payload (vals [C, k],
+        counts [C]) from iter_sparse_points; the base is copied into the
+        slot, then each list is painted in order.
 
         Returns True, or False when the native compositor or the exact
         camera grid is unavailable (callers use composite_frame then)."""
@@ -609,7 +833,11 @@ class ClipPipeline:
             slot = mosaic[gr * h:(gr + 1) * h, gc * w:(gc + 1) * w]
             src = base[camera] if base is not None else \
                 self.undistorted_image(camera, image_idx, copy=False)
-            if payload.shape[-1] == w:
+            if kind == "sparse":
+                vals, counts = payload
+                np.copyto(slot, src)
+                _native.paint_sparse(vals[c], counts[c], table, w, slot)
+            elif payload.shape[-1] == w:
                 _native.composite(src, payload[c], table, slot)
             else:
                 _native.composite_packed2(src, payload[c], table, slot, w)
@@ -622,6 +850,39 @@ class ClipPipeline:
                 one(it)
         return True
 
+    def iter_frames(self, source, n_threads=6, mode="auto"):
+        """Yields (image_idx, {camera: overlay image}) per valid frame.
+
+        mode: 'raster' streams dense class rasters; 'sparse' streams the
+        compacted point lists and paints them on the host; 'auto' serves
+        serving_mode's choice.  A sparse frame whose list overflows its k
+        is painted from its dense raster instead (counted as
+        'sparse_overflow'), in stream order."""
+        k = None
+        if mode == "auto":
+            mode, k = self.serving_mode(source)
+        with ThreadPoolExecutor(max_workers=n_threads) as pool:
+            if mode == "raster":
+                for image_idx, raster in self.iter_overlay_rasters(source):
+                    with self.timers.phase("host_composite"):
+                        frame = self.composite_frame(source, image_idx,
+                                                     raster, pool=pool)
+                    yield image_idx, frame
+                return
+            for image_idx, vals, counts in self.iter_sparse_points(source,
+                                                                   k=k):
+                if counts.max() > vals.shape[-1]:
+                    self.timers.add("sparse_overflow", 0.0)
+                    raster = self._overlay_single(source, image_idx)
+                    with self.timers.phase("host_composite"):
+                        frame = self.composite_frame(source, image_idx,
+                                                     raster, pool=pool)
+                else:
+                    with self.timers.phase("host_composite"):
+                        frame = self.composite_frame_sparse(
+                            source, image_idx, vals, counts, pool)
+                yield image_idx, frame
+
     def write_video(self, source, output_path, fps=10, preset=None):
         """Single-source overlay video (same engine as write_videos)."""
         return self.write_videos({source: output_path}, fps=fps,
@@ -632,6 +893,9 @@ class ClipPipeline:
         """Write several sources' overlay videos in ONE pass over the clip:
         each frame's base images are decoded + remapped once and every
         source composites onto them; streams are merged by image index.
+        Each source streams in its serving mode: sparse lists (a frame
+        whose list overflows falls back to its dense raster) or dense
+        rasters.
 
         Args:
             source_paths: {source: output_video_path}
@@ -645,15 +909,18 @@ class ClipPipeline:
         fused = _native.available() and self._grid_positions() is not None
         try:
             for src, path in source_paths.items():
+                mode, k = self.serving_mode(src)
                 sinks[src] = VideoSink(path, output_shape=(w * 3, h * 2), fps=fps,
                                        preset=preset)
-                streams[src] = self.iter_overlay_rasters(src, unpack=not fused)
+                streams[src] = (mode, self.iter_overlay_rasters(
+                    src, unpack=not fused) if mode == "raster"
+                    else self.iter_sparse_points(src, k=k))
             bufs = {src: self.composite_out_buffers() for src in source_paths} \
                 if not fused else None
             mosaics = {src: np.empty((h * 2, w * 3, 3), np.uint8)
                        for src in source_paths} if fused else None
             with ThreadPoolExecutor(max_workers=n_threads) as pool:
-                for src, it in streams.items():
+                for src, (_, it) in streams.items():
                     heads[src] = next(it, None)
                 while any(head is not None for head in heads.values()):
                     idx = min(head[0] for head in heads.values() if head is not None)
@@ -662,14 +929,27 @@ class ClipPipeline:
                     for src, head in heads.items():
                         if head is None or head[0] != idx:
                             continue
+                        kind, it = streams[src]
                         with self.timers.phase("host_composite"):
+                            if kind == "raster":
+                                payload = head[1]
+                            elif head[2].max() > head[1].shape[-1]:
+                                self.timers.add("sparse_overflow", 0.0)
+                                kind = "raster"
+                                payload = self._overlay_single(src, idx)
+                            else:
+                                payload = head[1:]
                             if fused:
                                 self.composite_mosaic_frame(
-                                    src, idx, head[1], base, mosaics[src],
-                                    pool=pool)
-                            else:
+                                    src, idx, payload, kind, base,
+                                    mosaics[src], pool=pool)
+                            elif kind == "raster":
                                 frame = self.composite_frame(
-                                    src, idx, head[1], pool=pool, base=base,
+                                    src, idx, payload, pool=pool, base=base,
+                                    out=bufs[src])
+                            else:
+                                frame = self.composite_frame_sparse(
+                                    src, idx, *payload, pool=pool, base=base,
                                     out=bufs[src])
                         if fused:
                             sinks[src].add_frame(mosaics[src])
@@ -679,7 +959,246 @@ class ClipPipeline:
                         if on_first_frame is not None:
                             on_first_frame()
                             on_first_frame = None
-                        heads[src] = next(streams[src], None)
+                        heads[src] = next(it, None)
+        finally:
+            _close_all_sinks(sinks)
+        return counts
+
+
+class MultiScenePipeline:
+    """Several scenes' dense overlay rasters, served together: one chunk of
+    frames of every member scene is dispatched at once.
+
+    Counterpart of cama_tpu/pipeline.py's MultiScenePipeline, without its
+    adaptive warm-up lane.  Per chunk, each member scene runs its lane's
+    list program (for 'fused', one fused_compact_project per scene, at the
+    largest union cap of the members); the lists are stacked [S, chunk, ...]
+    and the raster and packing stages run once over all of them.  Members
+    share one raster_kernel lane, device and output size; frames past a
+    shorter member's end carry frame_valid False.  The rasters equal each
+    member's own ClipPipeline rasters (the 'compact' lane serves single
+    stage here, which gives the same rasters)."""
+
+    def __init__(self, pipelines, source="cama", chunk=8):
+        self.pipelines = list(pipelines)
+        if not self.pipelines:
+            raise ValueError("need at least one pipeline")
+        self.source = source
+        self.chunk = int(chunk)
+        self._stacked_cache = {}
+        for attr in ("raster_kernel", "device"):
+            values = {getattr(p, attr) for p in self.pipelines}
+            if len(values) != 1:
+                raise ValueError(f"scenes disagree on {attr}: {values}")
+        sizes = {p.scene.output_size for p in self.pipelines}
+        if len(sizes) != 1:
+            raise ValueError(f"scenes disagree on output size: {sizes}")
+        self.raster_kernel = self.pipelines[0].raster_kernel
+        self.device = self.pipelines[0].device
+        self.timers = PhaseTimers()
+
+    def members(self, source):
+        """Indices of member pipelines that carry this label source."""
+        return [i for i, p in enumerate(self.pipelines)
+                if source in p.scene.flat]
+
+    def _stacked(self, source=None):
+        """(frame matrices, real frame counts, A [S, Fp, 4, 4],
+        B [S, Fp, C, 3, 4], frame_valid [S, Fp]) of the members carrying
+        `source`, on the device, padded to Fp, the largest padded frame
+        count rounded up to the chunk (pad frames: identity A, zero B,
+        frame_valid False)."""
+        source = self.source if source is None else source
+        if source not in self._stacked_cache:
+            pipes = [self.pipelines[i] for i in self.members(source)]
+            if not pipes:
+                raise ValueError(f"no member scene carries source {source!r}")
+            mats = [p._chunked_AB(source) for p in pipes]
+            Fp = max(len(m[3]) for m in mats)
+            Fp = -(-Fp // self.chunk) * self.chunk
+            A = np.tile(np.eye(4, dtype=np.float32), (len(mats), Fp, 1, 1))
+            B = np.zeros((len(mats), Fp) + mats[0][2].shape[1:], np.float32)
+            fv = np.zeros((len(mats), Fp), bool)
+            for i, (_, Ai, Bi, fvi, _) in enumerate(mats):
+                A[i, :len(fvi)], B[i, :len(fvi)], fv[i, :len(fvi)] = Ai, Bi, fvi
+            tensors = (torch.from_numpy(a).to(self.device) for a in (A, B, fv))
+            self._stacked_cache[source] = ([m[0] for m in mats],
+                                           [m[4] for m in mats], *tensors)
+        return self._stacked_cache[source]
+
+    def _source_state(self, source):
+        """Per-source serving state: member indices, frame maps, the stacked
+        frame matrices, the link packing, the shared list size k (the
+        largest of the members' own dense list sizes, from their counting
+        passes) and each member's limit for its counts: k, or its own P
+        for 'scatter', which has no list."""
+        members = self.members(source)
+        fms, Fs, A, B, fv = self._stacked(source)
+        pipes = [self.pipelines[i] for i in members]
+        for p in pipes:
+            p.overlay_mode(source)
+        sizes = [p._k[source] for p in pipes]
+        return {"members": members, "pipes": pipes, "fms": fms, "Fs": Fs,
+                "A": A, "B": B, "fv": fv, "k": max(sizes),
+                "limits": (sizes if self.raster_kernel == "scatter"
+                           else [max(sizes)] * len(sizes)),
+                "use_2bit": all(p._use_2bit(source) for p in pipes),
+                "source": source}
+
+    def _dispatch_chunk(self, state, s):
+        """Queue one chunk of every member scene of a source: (rasters
+        [S, chunk, C, H, W(/4)], counts [S, chunk]) on their way to pinned
+        host buffers, and the event marking their arrival; None past the
+        end."""
+        A, B, fv = state["A"], state["B"], state["fv"]
+        if s >= fv.shape[1]:
+            return None
+        h, w = self.pipelines[0].scene.output_size
+        lo, hi = self.pipelines[0]._crop_lo, self.pipelines[0]._crop_hi
+        lane, two_bit = self.raster_kernel, state["use_2bit"]
+        sl = slice(s, s + self.chunk)
+        with self.timers.phase("device_dispatch"):
+            outs = []
+            for i, p in enumerate(state["pipes"]):
+                st = p.scene_tensors(state["source"])
+                args = (st.points, st.valid, st.cls, A[i, sl], B[i, sl],
+                        fv[i, sl], lo, hi, w, h)
+                outs.append(_overlay_chunk(*args, two_bit) if lane == "scatter"
+                            else _chunk_lists(lane, *args, state["k"]))
+            first, count = (torch.stack(t) for t in zip(*outs))
+            rasters = first if lane == "scatter" else _lists_to_rasters(
+                lane, first, count, w, h, two_bit)
+            return _fetch_async((rasters, count), self.device.type == "cuda")
+
+    def _drain_chunk(self, state, s, entry, unpack=True):
+        """[(scene index, image_idx, cls_raster [C, H, W] uint8), ...] of a
+        dispatched chunk; every member's list counts are checked against
+        the list size (an overflow raises).  unpack=False passes the 2-bit
+        packed format through (the native mosaic compositor decodes it
+        during the paint)."""
+        (rasters, count), done = entry
+        w = self.pipelines[0].scene.output_size[1]
+        with self.timers.phase("raster_fetch"):
+            if done is not None:
+                done.synchronize()
+            count = count.numpy()
+            for mi, limit in enumerate(state["limits"]):
+                _check_lists(f"scene {state['members'][mi]} "
+                             f"{state['source']}", self.raster_kernel, s,
+                             count[mi], limit)
+            rasters = rasters.numpy()
+            if unpack and rasters.shape[-1] != w:
+                rasters = unpack_cls_2bit(rasters, w)
+        out = []
+        for mi, (fm, F) in enumerate(zip(state["fms"], state["Fs"])):
+            for j in range(rasters.shape[1]):
+                if s + j < F and fm.frame_valid[s + j]:
+                    out.append((state["members"][mi],
+                                int(fm.frame_indices[s + j]), rasters[mi, j]))
+        return out
+
+    def iter_overlay_rasters(self, max_in_flight=3, source=None):
+        """Yields (scene_idx, image_idx, cls_raster [C, H, W] uint8) across
+        every member scene, chunk by chunk.  At most `max_in_flight`
+        chunks' [S, chunk, C, H, W] buffers are pending at once."""
+        state = self._source_state(self.source if source is None else source)
+        pending = []
+        for s in range(0, state["fv"].shape[1], self.chunk):
+            pending.append((s, self._dispatch_chunk(state, s)))
+            if len(pending) >= max_in_flight:
+                yield from self._drain_chunk(state, *pending.pop(0))
+        for s, entry in pending:
+            yield from self._drain_chunk(state, s, entry)
+
+    def iter_frame_groups(self, sources, max_in_flight=3, unpack=True):
+        """Yields, in chunk order, (scene_idx, image_idx, {source:
+        cls_raster}), with every source's chunk of every scene dispatched
+        back to back."""
+        states = {src: self._source_state(src) for src in sources}
+        n_chunks = max(-(-st["fv"].shape[1] // self.chunk)
+                       for st in states.values())
+        pending = []
+
+        def drain(entry):
+            s, per_src = entry
+            grouped = {}
+            for src, chunk in per_src.items():
+                if chunk is None:
+                    continue
+                for si, idx, raster in self._drain_chunk(states[src], s,
+                                                         chunk, unpack):
+                    grouped.setdefault((si, idx), {})[src] = raster
+            for (si, idx), by_src in sorted(grouped.items()):
+                yield si, idx, by_src
+
+        for ci in range(n_chunks):
+            s = ci * self.chunk
+            pending.append((s, {src: self._dispatch_chunk(states[src], s)
+                                for src in sources}))
+            if len(pending) >= max_in_flight:
+                yield from drain(pending.pop(0))
+        for entry in pending:
+            yield from drain(entry)
+
+    def write_videos(self, per_scene_paths, fps=10, n_threads=6, preset=None,
+                     on_first_frame=None):
+        """The scene-batched counterpart of ClipPipeline.write_videos:
+        every scene's every source's overlay video in one pass, each
+        frame's base images decoded once and shared across sources.
+
+        Args:
+            per_scene_paths: list (parallel to self.pipelines) of
+                {source: output_video_path}
+            on_first_frame: optional callable invoked once after the first
+                frame of any sink reaches its encoder
+        Returns a list of {source: frames_written} per scene.
+        """
+        sources = sorted({s for paths in per_scene_paths for s in paths})
+        h, w = self.pipelines[0].scene.output_size
+        counts = [{src: 0 for src in paths} for paths in per_scene_paths]
+        sinks = {}
+        try:
+            for si, paths in enumerate(per_scene_paths):
+                for src, path in paths.items():
+                    sinks[(si, src)] = VideoSink(
+                        path, output_shape=(w * 3, h * 2), fps=fps, preset=preset)
+            bufs = {}  # (si, src) -> persistent composite or mosaic buffers
+            # the native mosaic path for every scene, or the dict path for
+            # every scene: packed 2-bit rasters stream through to the paint
+            fused = _native.available() and all(
+                p._grid_positions() is not None for p in self.pipelines)
+            with ThreadPoolExecutor(max_workers=n_threads) as pool:
+                for si, idx, by_src in self.iter_frame_groups(
+                        sources, unpack=not fused):
+                    pipe = self.pipelines[si]
+                    with self.timers.phase("host_decode"):
+                        base = pipe.base_images(idx, pool=pool)
+                    for src, raster in by_src.items():
+                        if (si, src) not in sinks:
+                            continue
+                        with self.timers.phase("host_composite"):
+                            if fused:
+                                mos = bufs.get((si, src))
+                                if mos is None:
+                                    mos = bufs[(si, src)] = np.empty(
+                                        (h * 2, w * 3, 3), np.uint8)
+                                pipe.composite_mosaic_frame(
+                                    src, idx, raster, "raster", base, mos,
+                                    pool=pool)
+                            else:
+                                if (si, src) not in bufs:
+                                    bufs[(si, src)] = pipe.composite_out_buffers()
+                                frame = pipe.composite_frame(
+                                    src, idx, raster, pool=pool, base=base,
+                                    out=bufs[(si, src)])
+                        if fused:
+                            sinks[(si, src)].add_frame(mos)
+                        else:
+                            sinks[(si, src)].add_frame_from_dict(frame)
+                        counts[si][src] += 1
+                        if on_first_frame is not None:
+                            on_first_frame()
+                            on_first_frame = None
         finally:
             _close_all_sinks(sinks)
         return counts

@@ -1,5 +1,6 @@
 """Per-phase wall-clock timers of the pipeline: cama_tpu/profiling.py's
-PhaseTimers, cut to the accumulation the port reads (total and count)."""
+PhaseTimers, cut to the accumulation the port reads (total and count,
+timed phases and added events)."""
 from __future__ import annotations
 
 import contextlib
@@ -23,3 +24,7 @@ class PhaseTimers:
         finally:
             self.total[name] += time.perf_counter() - t0
             self.count[name] += 1
+
+    def add(self, name, seconds, n=1):
+        self.total[name] += seconds
+        self.count[name] += n

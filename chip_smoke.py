@@ -23,20 +23,35 @@ next to this script):
      at the TPU probe's shape and on one chunk's survivor lists of the
      'pallas' lane (48 rasters of 540 x 960);
   3. the main paths, each with every launch count set to 0 just before it
-     and read just after: ClipPipeline(device='cuda').iter_overlay_rasters
-     over every frame of the 'cama' source, raster_kernel 'fused' and then
-     'pallas', each raster composited into the 3x2 mosaic by the native
-     compositor over a 6-thread pool (as write_videos does) onto black base
-     images; rasters held against the float64 host lane (>= 0.99999 per
-     frame), against the plain versions' programs on the card and against
-     each other (exact); and the kernel-strategy tool
-     (cama_tpu_torch.tools.bench_kernels), the path of paint_max;
+     and read just after, each frame composited into the 3x2 mosaic by the
+     native compositor over a 6-thread pool (as write_videos does) onto
+     black base images:
+     - the main path, the mode write_videos serves: ClipPipeline(
+       raster_kernel='auto', device='cuda').serving_mode, which is 'sparse'
+       on the wide fixture (the JAX package's decision, held here), then
+       iter_sparse_points over every frame of 'cama' and the host paint of
+       the lists; the lists held on the card against the plain program
+       (fused_compact_project_ref, then sparse_from_union) and the
+       'pallas' and 'compact' lanes' sparse programs (exact), the mosaics
+       against the dense path's (byte for byte) and the float64 host
+       lane's (>= 0.99999 per frame);
+     - iter_overlay_rasters, the dense path, raster_kernel 'fused' and then
+       'pallas'; rasters held against the float64 host lane (>= 0.99999 per
+       frame), against the plain versions' programs on the card and against
+       each other (exact); the 'compact' lane, which goes two-stage here,
+       against 'fused' (exact);
+     - MultiScenePipeline over the wide and the default fixture, both
+       sources, every raster equal to its scene's solo raster (exact);
+     - the kernel-strategy tool (cama_tpu_torch.tools.bench_kernels), the
+       path of paint_max;
   4. times: kernels, plain versions and library calls (CUDA events, median
      of 20 runs after warm-up) beside each kernel's bound on this run's
-     inputs; per-chunk device time of each stage of both lanes' device
-     programs; frames/s of the streams over windows of at least
-     MIN_WINDOW_S seconds, with the host phase split and the device busy
-     share (torch.profiler).
+     inputs; per-chunk device time of each stage of the sparse program and
+     of both lanes' dense programs, the lists' copy to the host and the
+     host paint of a frame (sparse lists against 2-bit rasters); frames/s
+     of the streams over windows of at least MIN_WINDOW_S seconds (three
+     for the main path, one for each other stream), with the host phase
+     split and the device busy share (torch.profiler).
 
 The last two lines are the kernels' JSON record and the result line.  The
 script fails if any module of jax or of the JAX package cama_tpu was
@@ -225,37 +240,120 @@ def projection_work(args, geo, kept=None):
     return nbytes, F * P * 21 + (F * P if kept is None else kept) * 23 * C
 
 
-def run_stream(pipe, source, pool, rasters=None, min_seconds=0.0):
-    """The main path as write_videos runs it, less decode and encode:
-    iter_overlay_rasters, then the native mosaic compositor over `pool`
-    onto black base images (the fixture clip has no JPEGs).  Passes over
-    the clip repeat until `min_seconds` have elapsed.
-    Returns (frames, seconds, mosaic)."""
+def black_bases(pipe):
+    """({camera: black [H, W, 3] base image}, an empty mosaic) of a
+    pipeline's scene (the fixture clip has no JPEGs)."""
     import numpy as np
 
-    from cama_tpu_torch.io.video import concat_camera_grid
+    h, w = pipe.scene.output_size
+    return ({cam: np.zeros((h, w, 3), np.uint8)
+             for cam in pipe.scene.camera_list},
+            np.empty((2 * h, 3 * w, 3), np.uint8))
+
+
+def composite(pipe, source, idx, payload, kind, base, mosaic, pool):
+    """One frame into the mosaic by the native compositor (required)."""
+    if not pipe.composite_mosaic_frame(source, idx, payload, kind, base,
+                                       mosaic, pool=pool):
+        raise RuntimeError("the native mosaic compositor is unavailable")
+
+
+def run_stream(pipe, source, pool, rasters=None, mosaics=None,
+               min_seconds=0.0):
+    """The dense path as write_videos runs it, less decode and encode:
+    iter_overlay_rasters, then the native mosaic compositor over `pool`
+    onto black base images.  Passes over the clip repeat until
+    `min_seconds` have elapsed; the first pass's rasters and mosaics go
+    into the given dicts.  Returns (frames, seconds, mosaic)."""
     from cama_tpu_torch.ops.raster import unpack_cls_2bit
 
-    h, w = pipe.scene.output_size
-    base = {cam: np.zeros((h, w, 3), np.uint8) for cam in pipe.scene.camera_list}
-    mosaic = np.empty((2 * h, 3 * w, 3), np.uint8)
+    w = pipe.scene.output_size[1]
+    base, mosaic = black_bases(pipe)
     n = 0
     t0 = time.perf_counter()
     while True:
         for idx, raster in pipe.iter_overlay_rasters(source, unpack=False):
             with pipe.timers.phase("host_composite"):
-                if not pipe.composite_mosaic_frame(source, idx, raster, base,
-                                                   mosaic, pool=pool):
-                    full = unpack_cls_2bit(raster, w) if raster.shape[-1] != w else raster
-                    concat_camera_grid(pipe.composite_frame(
-                        source, idx, full, pool=pool, base=base), out=mosaic)
+                composite(pipe, source, idx, raster, "raster", base, mosaic,
+                          pool)
             if rasters is not None:
                 rasters[idx] = (raster if raster.shape[-1] == w
                                 else unpack_cls_2bit(raster, w))
+            if mosaics is not None:
+                mosaics[idx] = mosaic.copy()
             n += 1
+        rasters = mosaics = None
         secs = time.perf_counter() - t0
         if secs >= min_seconds:
             return n, secs, mosaic
+
+
+def run_sparse_stream(pipe, source, pool, lists=None, mosaics=None,
+                      min_seconds=0.0):
+    """The main path as write_videos runs it for a scene that serves
+    sparse, less decode and encode: serving_mode, iter_sparse_points, then
+    each camera's list painted by the native compositor into its mosaic
+    slot over `pool`, onto black base images; a frame whose list overflows
+    is painted from its dense raster (_overlay_single), as write_videos
+    does.  Passes repeat until `min_seconds` have elapsed; the first
+    pass's lists and mosaics go into the given dicts.
+    Returns (frames, seconds, mosaic)."""
+    mode, k = pipe.serving_mode(source)
+    if mode != "sparse":
+        raise RuntimeError(f"{source} serves {mode}, not sparse")
+    base, mosaic = black_bases(pipe)
+    n = 0
+    t0 = time.perf_counter()
+    while True:
+        for idx, vals, counts in pipe.iter_sparse_points(source, k=k):
+            with pipe.timers.phase("host_composite"):
+                if counts.max() > vals.shape[-1]:
+                    pipe.timers.add("sparse_overflow", 0.0)
+                    composite(pipe, source, idx,
+                              pipe._overlay_single(source, idx), "raster",
+                              base, mosaic, pool)
+                else:
+                    composite(pipe, source, idx, (vals, counts), "sparse",
+                              base, mosaic, pool)
+            if lists is not None:
+                lists[idx] = (vals, counts)
+            if mosaics is not None:
+                mosaics[idx] = mosaic.copy()
+            n += 1
+        lists = mosaics = None
+        secs = time.perf_counter() - t0
+        if secs >= min_seconds:
+            return n, secs, mosaic
+
+
+def run_batched_stream(msp, sources, pool, rasters=None, min_seconds=0.0):
+    """MultiScenePipeline as its write_videos runs it, less decode and
+    encode: iter_frame_groups over `sources`, each raster composited into
+    its scene's mosaic.  Returns (video-frames over every scene and
+    source, seconds); the first pass's rasters go into `rasters`, keyed
+    (scene, source, image_idx)."""
+    from cama_tpu_torch.ops.raster import unpack_cls_2bit
+
+    w = msp.pipelines[0].scene.output_size[1]
+    base, mosaic = black_bases(msp.pipelines[0])
+    n = 0
+    t0 = time.perf_counter()
+    while True:
+        for si, idx, by_src in msp.iter_frame_groups(sources, unpack=False):
+            pipe = msp.pipelines[si]
+            for src, raster in by_src.items():
+                with msp.timers.phase("host_composite"):
+                    composite(pipe, src, idx, raster, "raster", base, mosaic,
+                              pool)
+                if rasters is not None:
+                    rasters[(si, src, idx)] = (
+                        raster if raster.shape[-1] == w
+                        else unpack_cls_2bit(raster, w))
+                n += 1
+        rasters = None
+        secs = time.perf_counter() - t0
+        if secs >= min_seconds:
+            return n, secs
 
 
 def device_busy_ms(fn):
@@ -271,6 +369,17 @@ def device_busy_ms(fn):
     us = sum(getattr(e, "self_device_time_total", 0)
              for e in prof.key_averages())
     return us / 1000.0 if us > 0 else None
+
+
+def busy_share(busy_ms, n_frames, rate):
+    """The device busy line of one traced pass of n_frames, against the
+    wall time per frame at `rate` frames/s."""
+    if busy_ms is None:
+        return "device busy share not measured (no device time in the trace)"
+    per = busy_ms / n_frames
+    return (f"device busy {per:.4f} ms/frame (torch.profiler, one pass) = "
+            f"{100.0 * per * rate / 1000.0:.2f} % of the median window's "
+            "wall time")
 
 
 def compare_projection(args, geo):
@@ -339,16 +448,30 @@ def pixels_apart(a, b):
     return sum(int((a[i] != b[i]).sum()) for i in a)
 
 
-def stream_rates(pipe, source, pool, windows):
-    """Median frames/s over `windows` warm windows of >= MIN_WINDOW_S, the
-    rates, and the host phase split of the last window (ms/frame)."""
+def stream_rates(pipe, source, pool, windows, runner=run_stream):
+    """Median frames/s over `windows` warm windows of >= MIN_WINDOW_S of
+    runner (run_stream or run_sparse_stream), the rates, and the host
+    phase split of the last window (ms/frame)."""
     rates, split = [], {}
     for _ in range(windows):
         pipe.timers = type(pipe.timers)()
-        n, secs, _ = run_stream(pipe, source, pool, min_seconds=MIN_WINDOW_S)
+        n, secs, _ = runner(pipe, source, pool, min_seconds=MIN_WINDOW_S)
         rates.append(n / secs)
         split = {k: 1000.0 * v / n for k, v in pipe.timers.total.items()}
     return statistics.median(rates), rates, split
+
+
+def host_paint_ms(pipe, source, payloads, kind, pool, passes=3):
+    """Median wall ms of composite_mosaic_frame over the frames of
+    `payloads` ({image_idx: payload}), `passes` times each."""
+    base, mosaic = black_bases(pipe)
+    times = []
+    for _ in range(passes):
+        for idx, payload in payloads.items():
+            t0 = time.perf_counter()
+            composite(pipe, source, idx, payload, kind, base, mosaic, pool)
+            times.append(1000.0 * (time.perf_counter() - t0))
+    return statistics.median(times)
 
 
 def main():
@@ -362,6 +485,7 @@ def main():
     try:
         from cama_tpu_torch import _build, native
         from cama_tpu_torch import pipeline as tp
+        from cama_tpu_torch.io.fixture import make_fixture_clip
         from cama_tpu_torch.ops import fused_compact as fc
         from cama_tpu_torch.ops import paint
         from cama_tpu_torch.ops import pallas_project as pp
@@ -504,24 +628,56 @@ def main():
     # ---- phase 3: the main paths ----
     pool = ThreadPoolExecutor(max_workers=POOL_THREADS)
     n_chunks = st.A.shape[0] // CHUNK
+    lo, hi = probe._crop_lo, probe._crop_hi
+
+    # the main path: the mode write_videos serves, with 'auto' (the CLI's
+    # default lane)
+    reset_all_launches()
+    sp = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="auto",
+                      device=dev)
+    sp_lists, sp_mosaics = {}, {}
+    sp_frames, sp_secs, _ = run_sparse_stream(sp, "cama", pool, sp_lists,
+                                              sp_mosaics)
+    sp_launches = all_launches()
+    mode, k_sp = sp.serving_mode("cama")
+    ku, k1 = sp._fused_k["cama"], sp._two_stage["cama"]
+    say("main", f"main path, raster_kernel 'auto': serving_mode ('{mode}', "
+                f"{k_sp}), union cap {ku}, two-stage split {k1}; "
+                f"{sp_frames} frames of 'cama' in {sp_secs:.3f} s, counting "
+                f"pass included; sparse overflows "
+                f"{sp.timers.count.get('sparse_overflow', 0)}; launches "
+                f"{sp_launches}")
+    # the JAX package's decision on this fixture (tests/test_torch_sparse.py)
+    if ((mode, k_sp), ku, k1) != (("sparse", 4096), 8192, 65536):
+        raise RuntimeError("the serving decision differs from the JAX "
+                           "package's on the wide fixture")
+    want = {"fused_compact_project": 2 * n_chunks, "count_union": n_chunks,
+            "project_frame_pallas": 0, "paint_max": 0}
+    if sp_launches != want or sp.timers.count.get("sparse_overflow"):
+        raise RuntimeError(f"main-path launches {sp_launches} != {want} "
+                           f"({n_chunks} chunks: count_union and one "
+                           "fused_compact_project in the counting pass, one "
+                           "fused_compact_project to serve), or a list "
+                           "overflowed")
+
     paths = {}
     for lane in ("fused", "pallas"):
         reset_all_launches()
         pipe = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel=lane,
                             device=dev)
-        streamed = {}
-        n_frames, secs, mosaic = run_stream(pipe, "cama", pool, streamed)
+        streamed, mosaics = {}, {}
+        n_frames, secs, mosaic = run_stream(pipe, "cama", pool, streamed,
+                                            mosaics)
         launches = all_launches()
-        paths[lane] = (pipe, streamed, n_frames, secs, launches)
-        k = pipe.overlay_mode("cama")[1]
-        say("main", f"'{lane}' lane: {n_frames} frames of 'cama' "
+        paths[lane] = (pipe, streamed, n_frames, secs, launches, mosaics)
+        say("main", f"dense path, '{lane}' lane: {n_frames} frames of 'cama' "
                     f"({int(pipe.scene.flat['cama'].valid.sum())} points, "
-                    f"chunk {CHUNK}, k {k}, {POOL_THREADS} compositor threads) "
-                    f"in {secs:.3f} s, counting pass included; launches "
-                    f"{launches}")
+                    f"chunk {CHUNK}, list size {pipe._k['cama']}, "
+                    f"{POOL_THREADS} compositor threads) in {secs:.3f} s, "
+                    f"counting pass included; launches {launches}")
         if mosaic.shape != (2 * h, 3 * w, 3) or n_frames < 2:
             raise RuntimeError(f"bad stream: {n_frames} frames, {mosaic.shape}")
-    expect = {"fused": {"fused_compact_project": n_chunks,
+    expect = {"fused": {"fused_compact_project": 2 * n_chunks,
                         "count_union": n_chunks, "project_frame_pallas": 0,
                         "paint_max": 0},
               "pallas": {"fused_compact_project": 0, "count_union": 0,
@@ -548,7 +704,7 @@ def main():
                 raise RuntimeError(f"frame {idx}: nothing painted")
             worst[lane] = min(worst[lane], float((got == ref).mean()))
     # the fused device program with the plain version as its front end
-    k_cap = pipe.overlay_mode("cama")[1]
+    k_cap = pipe._k["cama"]
     st = pipe.scene_tensors("cama")
     fm, _, _, _, F = pipe._chunked_AB("cama")
     mismatched = 0
@@ -556,7 +712,7 @@ def main():
         sl = slice(s, s + CHUNK)
         vals, count = fc.fused_compact_project_ref(
             st.points, st.valid, st.cls, st.A[sl], st.B[sl],
-            st.frame_valid[sl], w, h, pipe._crop_lo, pipe._crop_hi, k_cap)
+            st.frame_valid[sl], w, h, lo, hi, k_cap)
         ref = packed_to_cls(fc.rasterize_from_union(vals, count, w, h)).cpu().numpy()
         for j in range(ref.shape[0]):
             fidx = s + j
@@ -570,7 +726,7 @@ def main():
     # its front end is the 'compact' lane's program; 'scatter' paints every
     # kept point of the same projection
     pal, pal_streamed = paths["pallas"][:2]
-    k_pal = pal.overlay_mode("cama")[1]
+    k_pal = pal._k["cama"]
     apart = {
         "plain-projection program ('compact')": pixels_apart(
             pal_streamed, chunk_rasters(tp._overlay_chunk_compact, pal,
@@ -585,6 +741,112 @@ def main():
                 + " (each must be 0)")
     if min(worst.values()) < AGREE_MIN or mismatched or any(apart.values()):
         raise RuntimeError("main-path rasters out of contract")
+
+    # the main path's lists against the plain program and the other lanes'
+    # sparse programs on the card, chunk by chunk; its mosaics against the
+    # dense path's and the host lane's
+    list_apart = {"plain program (fused_compact_project_ref, then "
+                  "sparse_from_union)": 0, "'pallas' sparse program": 0,
+                  "'compact' sparse program": 0, "streamed lists": 0}
+    for s in range(0, st.A.shape[0], CHUNK):
+        sl = slice(s, s + CHUNK)
+        args = (st.points, st.valid, st.cls, st.A[sl], st.B[sl],
+                st.frame_valid[sl])
+        got_v, got_n, union = tp._project_compact_chunk(
+            *args, lo, hi, w, h, k_sp, lane="fused", k_cap=ku)
+        u_ref, c_ref = fc.fused_compact_project_ref(*args, w, h, lo, hi, ku)
+        refs = {"plain": (*fc.sparse_from_union(u_ref, c_ref, k_sp), c_ref)}
+        for lane in ("pallas", "compact"):
+            refs[lane] = tp._project_compact_chunk(*args, lo, hi, w, h, k_sp,
+                                                   lane=lane)
+        for label, (rv, rn, _) in zip(list_apart, refs.values()):
+            list_apart[label] += (int((got_v != rv).sum())
+                                  + int((got_n != rn).sum()))
+        list_apart["plain program (fused_compact_project_ref, then "
+                   "sparse_from_union)"] += int((union != c_ref).sum())
+        got_v, got_n = got_v.cpu().numpy(), got_n.cpu().numpy()
+        for j in range(got_v.shape[0]):
+            if s + j < F and fm.frame_valid[s + j]:
+                v, n = sp_lists[int(fm.frame_indices[s + j])]
+                list_apart["streamed lists"] += (int((v != got_v[j]).sum())
+                                                 + int((n != got_n[j]).sum()))
+    dense_mosaics = paths["fused"][5]
+    mosaic_apart = pixels_apart(sp_mosaics, dense_mosaics)
+    base, host_mosaic = black_bases(sp)
+    worst["sparse"] = 1.0
+    for idx, raster in host.items():
+        composite(sp, "cama", idx, raster, "raster", base, host_mosaic, pool)
+        worst["sparse"] = min(worst["sparse"], float(
+            (sp_mosaics[idx] == host_mosaic).all(-1).mean()))
+    say("main", "main path: list entries and counts differing on the card "
+                "from the "
+                + ", ".join(f"{k} {v}" for k, v in list_apart.items())
+                + f" (each must be 0); mosaic bytes differing from the dense "
+                f"'fused' path's {mosaic_apart} (must be 0); agreement vs "
+                f"host float64 lane: min {worst['sparse']:.10f} of the "
+                f"pixels per frame (>= {AGREE_MIN})")
+    if any(list_apart.values()) or mosaic_apart or worst["sparse"] < AGREE_MIN:
+        raise RuntimeError("main-path lists or mosaics out of contract")
+
+    # the 'compact' lane goes two-stage on this scene (k1 = 65536): its
+    # rasters against the 'fused' lane's
+    staged = []
+    two_stage = tp._overlay_chunk_two_stage
+
+    def counted_two_stage(*a):
+        staged.append(a[-3:-1])
+        return two_stage(*a)
+
+    tp._overlay_chunk_two_stage = counted_two_stage
+    try:
+        cmp_pipe = ClipPipeline(clip_path=clip, chunk=CHUNK,
+                                raster_kernel="compact", device=dev)
+        cmp_rasters = dict(cmp_pipe.iter_overlay_rasters("cama"))
+    finally:
+        tp._overlay_chunk_two_stage = two_stage
+    cmp_apart = pixels_apart(cmp_rasters, streamed)
+    say("main", f"'compact' lane: two-stage split {cmp_pipe._two_stage['cama']}"
+                f", chunks served two-stage {len(staged)} at (k1, k2) "
+                f"{sorted(set(staged))}; pixels differing from the 'fused' "
+                f"lane {cmp_apart} (must be 0)")
+    if (cmp_pipe._two_stage["cama"] != 65536 or len(staged) != n_chunks
+            or cmp_apart):
+        raise RuntimeError("the 'compact' lane's two-stage path is out of "
+                           "contract")
+
+    # MultiScenePipeline over the wide and the default fixture, both sources
+    default_clip = make_fixture_clip(
+        os.path.join(WORK, "default"), scene_name="scene-default",
+        with_images=False)
+    reset_all_launches()
+    members = [ClipPipeline(clip_path=c, chunk=CHUNK, device=dev)
+               for c in (clip, default_clip)]
+    msp = tp.MultiScenePipeline(members, chunk=CHUNK)
+    sources = ["cama", "nuscenes"]
+    batched = {}
+    b_frames, b_secs = run_batched_stream(msp, sources, pool, batched)
+    b_launches = all_launches()
+    chunks = {src: [m.scene_tensors(src).A.shape[0] // CHUNK for m in members]
+              for src in sources}
+    want = {"fused_compact_project": sum(sum(n) + len(n) * max(n)
+                                         for n in chunks.values()),
+            "count_union": sum(sum(n) for n in chunks.values()),
+            "project_frame_pallas": 0, "paint_max": 0}
+    b_apart = 0
+    for si, member in enumerate(members):
+        for src in sources:
+            solo = dict(member.iter_overlay_rasters(src))
+            got = {idx: r for (i, s_, idx), r in batched.items()
+                   if i == si and s_ == src}
+            b_apart += pixels_apart(got, solo)
+    say("main", f"MultiScenePipeline, wide + default fixture "
+                f"({', '.join(str(int(m.scene.flat['cama'].valid.sum())) for m in members)}"
+                f" 'cama' points), both sources: {b_frames} video-frames in "
+                f"{b_secs:.3f} s, counting passes included; launches "
+                f"{b_launches} (expected {want}); pixels differing from the "
+                f"solo rasters {b_apart} (must be 0)")
+    if b_launches != want or b_apart:
+        raise RuntimeError("MultiScenePipeline out of contract")
 
     # the paint kernel's path: the kernel-strategy tool
     reset_all_launches()
@@ -728,27 +990,102 @@ def main():
                 + ", ".join(f"{k} {v:.4f}" for k, v in pal_stages.items())
                 + f" | {card}")
 
-    rate, rates, split = stream_rates(pipe, "cama", pool, WINDOWS)
+    # the main path's sparse program, stage by stage, one chunk of CHUNK
+    union_v, union_c = fc.fused_compact_project(*chunk_args, w, h, lo, hi, ku)
+    lists_v, lists_n = fc.sparse_from_union(union_v, union_c, k_sp)
+    host_v = torch.empty(lists_v.shape, dtype=lists_v.dtype, pin_memory=True)
+    host_n = torch.empty(lists_n.shape, dtype=lists_n.dtype, pin_memory=True)
+    host_u = torch.empty(union_c.shape, dtype=union_c.dtype, pin_memory=True)
+
+    def fetch_lists():
+        host_v.copy_(lists_v, non_blocking=True)
+        host_n.copy_(lists_n, non_blocking=True)
+        host_u.copy_(union_c, non_blocking=True)
+
+    def sparse_chunk():
+        return tp._project_compact_chunk(*chunk_args, lo, hi, w, h, k_sp,
+                                         lane="fused", k_cap=ku)
+
+    link_bytes = sum(t.numel() * t.element_size()
+                     for t in (lists_v, lists_n, union_c))
+    ms_fetch = time_ms(fetch_lists)
+    sp_stages = {
+        "count_union (counting pass, once per chunk)": stages[
+            "count_union (k sizing, once per chunk)"],
+        f"fused_compact_project at k_cap {ku} (counting pass, and again to "
+        "serve)": time_ms(lambda: fc.fused_compact_project(
+            *chunk_args, w, h, lo, hi, ku)),
+        "sparse_from_union": time_ms(
+            lambda: fc.sparse_from_union(union_v, union_c, k_sp)),
+        "whole serving chunk (fused_compact_project + sparse_from_union)":
+            time_ms(sparse_chunk),
+        f"D2H of the lists ({link_bytes} bytes, "
+        f"{link_bytes / CHUNK:.0f} a frame, pinned, non_blocking)": ms_fetch,
+    }
+    for entry, fn in (
+            ("fused_compact_project", lambda: fc.fused_compact_project(
+                *chunk_args, w, h, lo, hi, ku)),
+            ("sparse_from_union",
+             lambda: fc.sparse_from_union(union_v, union_c, k_sp)),
+            ("whole serving chunk", sparse_chunk),
+            ("D2H of the lists", fetch_lists)):
+        sp_stages[f"{entry} on the card alone (torch.profiler)"] = (
+            device_work(fn)[1] or float("nan"))
+    say("time", "main path's sparse program, ms per chunk of "
+                f"{CHUNK} frames at {st.points.shape[0]} points, k {k_sp} "
+                f"(CUDA events, median of {bk.RUNS}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sp_stages.items())
+                + f"; the lists cross at {link_bytes / ms_fetch / 1e6:.2f} "
+                f"GB/s | {card}")
+    # the host paint of one frame: sparse lists against 2-bit rasters
+    packed = dict(pipe.iter_overlay_rasters("cama", unpack=False))
+    paint_ms = {"paint_sparse (sparse lists)": host_paint_ms(
+                    sp, "cama", sp_lists, "sparse", pool),
+                "composite_packed2 (2-bit rasters)": host_paint_ms(
+                    pipe, "cama", packed, "raster", pool)}
+    say("time", "host_composite of one frame into the mosaic, median ms "
+                f"over {len(sp_lists)} frames x 3 ({POOL_THREADS} threads, "
+                "base copy included): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in paint_ms.items())
+                + f" | {card}")
+
+    s_rate, s_rates, s_split = stream_rates(sp, "cama", pool, WINDOWS,
+                                            run_sparse_stream)
+    s_busy = device_busy_ms(lambda: run_sparse_stream(sp, "cama", pool))
+    say("time", f"main path (sparse stream, 'auto'), warm, windows of >= "
+                f"{MIN_WINDOW_S} s: {', '.join(f'{r:.2f}' for r in s_rates)} "
+                f"frames/s (median {s_rate:.2f}); first run "
+                f"{sp_frames / sp_secs:.2f} frames/s (counting pass and "
+                f"first-use allocations) | {card}")
+    say("time", "main path host phase split of the last window, ms/frame: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in s_split.items())
+                + " | " + busy_share(s_busy, sp_frames, s_rate) + f" | {card}")
+    rate, rates, split = stream_rates(pipe, "cama", pool, 1)
     n_frames, secs = paths["fused"][2:4]
     busy = device_busy_ms(lambda: run_stream(pipe, "cama", pool))
-    busy_line = ("device busy share not measured (no device time in the "
-                 "trace)" if busy is None else
-                 f"device busy {busy / n_frames:.4f} ms/frame (torch.profiler, "
-                 f"one pass) = {100.0 * busy / n_frames * rate / 1000.0:.2f} % "
-                 f"of the median window's wall time")
-    say("time", f"'fused' stream, warm, windows of >= {MIN_WINDOW_S} s: "
-                f"{', '.join(f'{r:.2f}' for r in rates)} frames/s (median "
-                f"{rate:.2f}); first run {n_frames / secs:.2f} frames/s "
-                f"(counting pass and first-use allocations) | {card}")
-    say("time", "host phase split of the last window, ms/frame: "
+    say("time", f"dense 'fused' stream, warm, one window of >= "
+                f"{MIN_WINDOW_S} s: {rate:.2f} frames/s; first run "
+                f"{n_frames / secs:.2f} frames/s | {card}")
+    say("time", "dense 'fused' host phase split, ms/frame: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-                + f" | {busy_line} | {card}")
+                + " | " + busy_share(busy, n_frames, rate) + f" | {card}")
     p_rate, _, p_split = stream_rates(pal, "cama", pool, 1)
     p_frames, p_secs = paths["pallas"][2:4]
-    say("time", f"'pallas' stream, warm, one window of >= {MIN_WINDOW_S} s: "
-                f"{p_rate:.2f} frames/s; first run {p_frames / p_secs:.2f} "
-                "frames/s; host phase split, ms/frame: "
+    say("time", f"dense 'pallas' stream, warm, one window of >= "
+                f"{MIN_WINDOW_S} s: {p_rate:.2f} frames/s; first run "
+                f"{p_frames / p_secs:.2f} frames/s; host phase split, "
+                "ms/frame: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in p_split.items())
+                + f" | {card}")
+    msp.timers = type(msp.timers)()
+    n_b, secs_b = run_batched_stream(msp, sources, pool,
+                                     min_seconds=MIN_WINDOW_S)
+    say("time", f"MultiScenePipeline stream (wide + default fixture, both "
+                f"sources), warm, one window of >= {MIN_WINDOW_S} s: "
+                f"{n_b / secs_b:.2f} video-frames/s; first run "
+                f"{b_frames / b_secs:.2f}; host phase split, ms/video-frame: "
+                + ", ".join(f"{k} {1000.0 * v / n_b:.4f}"
+                            for k, v in msp.timers.total.items())
                 + f" | {card}")
     pool.shutdown()
 
@@ -778,17 +1115,19 @@ def main():
         # times of the two projection kernels in ms per frame (chunk of 16
         # at 1,048,576 points); no single PyTorch call computes them.  ms:
         # CUDA events around one call, the host's enqueue included;
-        # device_ms: the call's kernels and memsets alone (torch.profiler)
+        # device_ms: the call's kernels and memsets alone (torch.profiler).
+        # launches: the main path's (the sparse stream), counting pass
+        # included
         entry("fused_compact_project", fused_src,
               "cama_tpu/ops/fused_compact.py:241",
-              paths["fused"][4]["fused_compact_project"], fused_err,
+              sp_launches["fused_compact_project"], fused_err,
               ms_k * per, ms_r * per, bound_k * per, by_k, None,
               launches_per_call["fused_compact_project"], per,
               unit="ms/frame"),
         # the same kernel without the writes, which sizes k on the main
         # path (the JAX package counts with XLA: pipeline.py:447)
         entry("count_union", fused_src, "cama_tpu/pipeline.py:447",
-              paths["fused"][4]["count_union"], count_err, ms_ck * per,
+              sp_launches["count_union"], count_err, ms_ck * per,
               ms_cr * per, bound_c * per, by_c, None,
               launches_per_call["count_union"], per, unit="ms/frame"),
         entry("project_frame_pallas", "cama_tpu_torch/csrc/pallas_project.cu",

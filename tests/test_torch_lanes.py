@@ -231,10 +231,9 @@ def test_lane_k_from_own_count_and_overflow_raises(clip, lane):
                               device="cpu")
     _, k = pipe.overlay_mode("cama")
     P = pipe.scene.flat["cama"].points.shape[0]
-    if lane == "scatter":
-        assert k == P
-    else:
-        assert 1024 <= k <= P and (k & (k - 1)) == 0
+    assert 1024 <= k <= P and (k & (k - 1)) == 0
+    # the dense list size: 'scatter' has no list and is held against P
+    assert pipe._k["cama"] == (P if lane == "scatter" else k)
     pipe._k["cama"] = 64  # a list far too small for the scene
     with pytest.raises(RuntimeError, match=f"over the {lane} list size k=64"):
         list(pipe.iter_overlay_rasters("cama"))

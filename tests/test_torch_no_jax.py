@@ -99,6 +99,50 @@ _CHILD_NO_CAMA_TPU = textwrap.dedent("""
 """)
 
 
+# jax and the JAX package both unimportable: every lane's sparse lane
+# (lists, host paint, the overflow fallback) and the two-scene CLI, which
+# writes through MultiScenePipeline
+_CHILD_SPARSE_BATCHED = textwrap.dedent("""
+    import os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["cama_tpu"] = None
+    import yaml
+    import cama_tpu_torch.pipeline as tp
+    from cama_tpu_torch.cli import main
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    root = tempfile.mkdtemp()
+    conv = os.path.join(root, "c")
+    clips = [make_fixture_clip(conv, scene_name=n, n_frames=3)
+             for n in ("s1", "s2")]
+    for lane in tp.RASTER_KERNELS:
+        pipe = tp.ClipPipeline(clip_path=clips[0], chunk=2,
+                               raster_kernel=lane, device="cpu")
+        assert pipe.serving_mode("cama")[0] == "sparse"
+        sparse = dict(pipe.iter_frames("cama", mode="sparse"))
+        dense = dict(pipe.iter_frames("cama", mode="raster"))
+        assert len(sparse) >= 2 and sparse.keys() == dense.keys()
+        assert all((sparse[i][c] == dense[i][c]).all()
+                   for i in dense for c in dense[i])
+    pipes = [tp.ClipPipeline(clip_path=c, chunk=2, device="cpu")
+             for c in clips]
+    batched = list(tp.MultiScenePipeline(pipes, chunk=2).iter_overlay_rasters())
+    assert {si for si, _, _ in batched} == {0, 1}
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"converted_dataroot": conv, "scene_names": ["s1", "s2"],
+                        "output_video_dir": os.path.join(root, "v")}, f)
+    assert main(["--config", cfg, "--device", "cpu"]) == 0
+    assert sorted(os.listdir(os.path.join(root, "v"))) == [
+        "s1_cama.mp4", "s1_nuScenes.mp4", "s2_cama.mp4", "s2_nuScenes.mp4"]
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("SPARSE_BATCHED_OK")
+""")
+
+
 def _run_child(code, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -122,6 +166,13 @@ def test_port_runs_without_cama_tpu(tmp_path):
     proc = _run_child(_CHILD_NO_CAMA_TPU, tmp_path)
     assert proc.returncode == 0, proc.stderr
     assert "NO_CAMA_TPU_OK" in proc.stdout
+
+
+def test_sparse_lane_and_batched_cli_without_jax_or_cama_tpu(tmp_path):
+    proc = _run_child(_CHILD_SPARSE_BATCHED, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "Batching 2 scenes" in proc.stdout
+    assert "SPARSE_BATCHED_OK" in proc.stdout
 
 
 def _port_sources():

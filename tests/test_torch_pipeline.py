@@ -147,7 +147,10 @@ def test_k_cap_from_own_count_and_overflow_raises(clip):
     pipe = tpipe.ClipPipeline(clip_path=clip, chunk=2, device="cpu")
     mode, k = pipe.overlay_mode("cama")
     P = pipe.scene.flat["cama"].points.shape[0]
-    assert mode == "raster" and 1024 <= k <= P and (k & (k - 1)) == 0
+    # the JAX package's decision: a sparse scene, and the fused lane's dense
+    # list sized by the union count
+    assert mode == "sparse" and 1024 <= k <= P and (k & (k - 1)) == 0
+    assert pipe._k["cama"] == pipe._fused_k["cama"] >= k
     pipe._k["cama"] = 64  # a list far too small for the scene
     with pytest.raises(RuntimeError, match="over the fused list size"):
         list(pipe.iter_overlay_rasters("cama"))
