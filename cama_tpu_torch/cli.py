@@ -8,10 +8,11 @@ The device comes from --device, else cama_configs.device, else 'cuda'; the
 device lane from cama_configs.raster_kernel, else 'auto' (which serves
 'fused').  With two or more scenes and `batch_scenes` (default true),
 scenes of one output size are written together through
-MultiScenePipeline, as main.py does; otherwise one after another.  Not
-supported yet, and reported as failures: the `sites:` aggregation block,
-and scenes that still need the nuScenes -> clip conversion (convert them
-once with main.py; the JAX package's converter imports jax).
+MultiScenePipeline, as main.py does; otherwise one after another.  A scene
+with no attribute.json yet is converted first by this package's
+NuScenesConverter (convert/nuscenes.py; it needs the nuScenes devkit, like
+main.py).  Not supported yet, and reported as a failure: the `sites:`
+aggregation block.
 """
 from __future__ import annotations
 
@@ -81,11 +82,13 @@ def run(configs, device="cuda"):
                   "scenes without already-extracted labels will skip their "
                   "cama video", flush=True)
 
+    state = {"converter": None}  # built at the first unconverted scene
     failures = []
     to_write = []  # (scene_name, pipeline, {source: video_path})
     for scene_name in scene_names:
         item = _isolated(scene_name, failures, _prepare_scene, configs,
-                         scene_name, output_dir, output_video_dir, device)
+                         scene_name, output_dir, output_video_dir, device,
+                         state)
         if item is not None and item[2]:
             to_write.append(item)
     if configs.get("batch_scenes", True) and len(to_write) > 1:
@@ -103,14 +106,17 @@ def run(configs, device="cuda"):
 
 
 def _prepare_scene(configs, scene_name, output_dir, output_video_dir,
-                   device="cuda"):
-    """Compile the scene pipeline for one converted scene.
-    Returns (scene_name, pipeline, {source: video_path})."""
+                   device, state):
+    """Convert the scene when it is not a clip yet, then compile its
+    pipeline.  `state` carries the one lazily built NuScenesConverter across
+    scenes.  Returns (scene_name, pipeline, {source: video_path})."""
     clip_path = os.path.join(output_dir, scene_name)
     if not os.path.exists(os.path.join(clip_path, "attribute.json")):
-        raise FileNotFoundError(
-            f"{clip_path} is not a converted clip (no attribute.json); "
-            "convert the scene with main.py first")
+        if state["converter"] is None:
+            from cama_tpu_torch.convert.nuscenes import NuScenesConverter
+
+            state["converter"] = NuScenesConverter(configs)
+        state["converter"].convert(scene_name)
     kern = (configs.get("cama_configs") or {}).get("raster_kernel") or "auto"
     pipe = ClipPipeline(configs.get("cama_configs"), clip_path,
                         raster_kernel=kern, device=device)

@@ -217,3 +217,231 @@ def route(t, kernel):
     if t.device.type in ("cuda", "cpu"):
         return t.device.type
     raise ValueError(f"no {kernel} implementation for {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Double-f32 (compensated) arithmetic for the bit-exact lane, the counterpart
+# of cama_tpu/ops/geometry.py's: error-free transformations give each dot
+# product a (value, error) pair accurate to ~eps32^2 relative, so ambiguity
+# flags fire only on genuine boundary-sitters.
+#
+# TwoSum and TwoProd hold only if every elementary op is IEEE-rounded exactly
+# as written.  PyTorch runs these eagerly, one rounded op per kernel, so each
+# op below is its own tensor op: no addcmul/addcdiv/lerp, no `alpha=`, no
+# matmul/einsum, no torch.compile and no fused kernel, any of which could
+# contract a multiply and an add into one FMA.  (The JAX package wraps each op
+# in an optimization barrier and probes its jit compiler for the same reason;
+# neither has a counterpart here.)
+# ---------------------------------------------------------------------------
+
+_SPLIT = 4097.0  # 2^12 + 1, Dekker's splitter for a 24-bit significand
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly (s = fl(a+b))."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def _split(x):
+    c = x * _SPLIT
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def _two_prod(a, b):
+    """Dekker TwoProd via 12-bit splitting: p + e == a * b exactly."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+    return p, e
+
+
+def _df_dot4(row, p4, row_lo=None):
+    """Compensated 4-term dot (Ogita-Rump-Oishi Dot2): (s, e) with
+    s + e == sum_j row[..., j] * p4[..., j] to ~eps32^2 relative accuracy.
+    row and p4 broadcast against each other with a trailing axis of 4.
+
+    row_lo carries the f32-cast residual of a matrix that was composed in
+    f64 (row_true = row + row_lo): its products are ~eps32 of the main
+    terms and land in the error channel with plain f32 accumulation."""
+    shape = torch.broadcast_shapes(row.shape[:-1], p4.shape[:-1])
+    s = torch.zeros(shape, dtype=torch.float32, device=p4.device)
+    e = s
+    for j in range(4):
+        pj, pe = _two_prod(row[..., j], p4[..., j])
+        s, se = _two_sum(s, pj)
+        e = e + (se + pe)
+        if row_lo is not None:
+            e = e + row_lo[..., j] * p4[..., j]
+    return s, e
+
+
+def _df_div(xs, xe, zs, ze):
+    """Double-f32 division (xs+xe)/(zs+ze) -> (q1, q2) with one Newton
+    correction: q2 captures the residual of q1 = fl(xs/zs)."""
+    q1 = xs / zs
+    p, pe = _two_prod(q1, zs)
+    r = (((xs - p) - pe) + xe) - q1 * ze
+    return q1, r / zs
+
+
+def _df_frac_dist(q1, q2):
+    """(floor, distance to the nearest integer line) of the double-f32 value
+    q1 + q2.  |q1| < 2^23 makes q1 - floor(q1) exact, so the fractional part
+    frac + q2 carries the full compensated accuracy near 0 and 1."""
+    fl = torch.floor(q1)
+    frac = (q1 - fl) + q2
+    fl = fl + torch.floor(frac)  # q2 can push across the line
+    frac = frac - torch.floor(frac)
+    return fl, torch.minimum(frac, 1.0 - frac)
+
+
+#: absolute bands around decision boundaries (refined-value space): a point
+#: whose compensated value sits closer than this to a boundary is flagged
+#: even when f32 and refined quantize identically — the band absorbs the
+#: ~eps32^2 residual of the compensation and the host chain's own f64
+#: rounding, with orders of magnitude to spare.
+AMBIGUITY_BAND_PX = 1e-4  # pixels (u/v floor + image-bounds lines)
+AMBIGUITY_BAND_M = 1e-6   # meters (crop box planes, z>0 plane)
+
+
+def _compensated_frame(p4, Af, Bf, Bf_lo):
+    """The double-f32 half of one frame: crop coordinates (cs, ce) [3, P],
+    projection rows (ps, pe) [C, 3, P], the z > band guard z_ok [C, P] and
+    the pixel quotients (u1, u2), (v1, v2) [C, P] — the op sequence of
+    cama_tpu/ops/geometry.py:_checked_frame, bit for bit."""
+    cs, ce = _df_dot4(Af[:3, None, :], p4[None, :, :])
+    ps, pe = _df_dot4(Bf[:, :, None, :], p4[None, None, :, :],
+                      row_lo=Bf_lo[:, :, None, :])
+    zs, ze = ps[:, 2], pe[:, 2]
+    # guard the division away from the z~0 set (flagged anyway)
+    z_ok = (zs + ze).abs() > AMBIGUITY_BAND_M
+    zs_safe = torch.where(z_ok, zs, 1.0)
+    ze_safe = torch.where(z_ok, ze, 0.0)
+    u1, u2 = _df_div(ps[:, 0], pe[:, 0], zs_safe, ze_safe)
+    v1, v2 = _df_div(ps[:, 1], pe[:, 1], zs_safe, ze_safe)
+    return cs, ce, ps, pe, z_ok, u1, u2, v1, v2
+
+
+def _checked_frame(p4, valid, Af, Bf, Bf_lo, fv, vu, keep, width, height,
+                   crop_lo, crop_hi):
+    """One frame's ambiguity flags amb [P]: the production f32 values
+    (vu [C, P, 2], keep [C, P], from project_frames) against the compensated
+    double-f32 ones.  fv is the frame's frame_valid, a 0-d bool tensor."""
+    cs, ce, ps, pe, z_ok, u1, u2, v1, v2 = _compensated_frame(p4, Af, Bf,
+                                                              Bf_lo)
+    xyz_r = cs + ce                                           # [3, P]
+    in_crop_r = near_crop = None
+    for r in range(3):
+        lo, hi = float(crop_lo[r]), float(crop_hi[r])
+        inside = (xyz_r[r] >= lo) & (xyz_r[r] <= hi)
+        near = (((xyz_r[r] - lo).abs() <= AMBIGUITY_BAND_M)
+                | ((xyz_r[r] - hi).abs() <= AMBIGUITY_BAND_M))
+        in_crop_r = inside if in_crop_r is None else in_crop_r & inside
+        near_crop = near if near_crop is None else near_crop | near
+    z_r = ps[:, 2] + pe[:, 2]
+    mask_z_r = z_r > 0
+    near_z = ~z_ok
+    ufl, udist = _df_frac_dist(u1, u2)
+    vfl, vdist = _df_frac_dist(v1, v2)
+    u_r = u1 + u2
+    v_r = v1 + v2
+    in_img_r = (u_r >= 0) & (u_r < width) & (v_r >= 0) & (v_r < height)
+    relevant = valid[None, :] & fv
+    keep_r = mask_z_r & in_img_r & in_crop_r[None, :] & relevant
+
+    keep_flip = keep != keep_r
+    # pixel floor: the raster truncates (== floor for the kept u, v >= 0);
+    # only matters where the point paints on either side
+    pix_flip = (keep | keep_r) & ((torch.floor(vu[..., 1]) != ufl)
+                                  | (torch.floor(vu[..., 0]) != vfl))
+    # boundary bands fire on any point that plausibly passes the other
+    # guards on the refined side, ungated by `keep`: a point the device
+    # rejects at u = -1e-5 can still be kept by the host's f64 chain
+    near_line = (udist <= AMBIGUITY_BAND_PX) | (vdist <= AMBIGUITY_BAND_PX)
+    near_any = near_z | near_crop[None, :] | near_line
+    plaus = (relevant
+             & (mask_z_r | near_z)
+             & (in_crop_r[None, :] | near_crop[None, :])
+             & (u_r >= -1.0) & (u_r < width + 1.0)
+             & (v_r >= -1.0) & (v_r < height + 1.0))
+    return (keep_flip | pix_flip | (plaus & near_any)).any(dim=0)
+
+
+def project_frames_checked(points, valid, A, B, B_lo, frame_valid, width,
+                           height, crop_lo, crop_hi):
+    """project_frames plus per-point ambiguity flags, for the bit-exact
+    lane (plain PyTorch, any device); counterpart of
+    cama_tpu/ops/geometry.py:project_frames_checked.
+
+    Each point is projected twice: with the production f32 formula (this
+    package's project_frames, the values every raster lane consumes), and in
+    compensated double-f32 (error-free transformations plus B_lo, the
+    residual the f32 cast of the f64-composed B rounded away).  A point is
+    flagged when a keep guard (crop box, z > 0, image bounds) or the pixel
+    floor differs between the two, or when the refined value sits within
+    AMBIGUITY_BAND_* of a boundary: exactly the points whose f32 result
+    could disagree with the reference's f64 chain.  The exact lane
+    (pipeline.iter_overlay_rasters_exact) recomputes only those on the host.
+
+    The compensated half runs frame by frame (its [C, 3, P] temporaries are
+    many) as some hundreds of small elementwise ops per frame.
+
+    Returns (vu [F, C, P, 2], keep [F, C, P], amb [F, P]); amb is collapsed
+    over cameras because the host recompute projects a point into all
+    cameras in one call."""
+    vu, keep = project_frames(points, valid, A, B, frame_valid, width, height,
+                              crop_lo, crop_hi)
+    p4 = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
+    amb = torch.stack([
+        _checked_frame(p4, valid, A[f], B[f], B_lo[f], frame_valid[f], vu[f],
+                       keep[f], width, height, crop_lo, crop_hi)
+        for f in range(A.shape[0])])
+    return vu, keep, amb
+
+
+# ---------------------------------------------------------------------------
+# Host-exact golden path: the reference's per-frame NumPy chain, mixed
+# f32/f64 promotion included (a copy of
+# cama_tpu/ops/geometry.py:project_frame_exact; the dtypes are load-bearing).
+# ---------------------------------------------------------------------------
+
+
+def project_frame_exact(points_f32_or_f64, A_f32, chassis2cam, K_scaled, width, height,
+                        crop=None):
+    """One frame, all cameras, NumPy with the reference's exact dtype chain:
+    float32 world2chassis @ float64-promoted homogeneous points, crop, then
+    per-camera float64 extrinsic + K, divide, mask.  Returns per-camera
+    (vu [Pi, 2] float64 arrays, keep masks) without padding.
+
+    points: [P, 3]; A_f32: [4, 4] float32; chassis2cam: [C, 4, 4] float64;
+    K_scaled: [C, 3, 3] float64.
+    """
+    crop = crop or CROP_BOX
+    pts = np.asarray(points_f32_or_f64)
+    ph = np.concatenate([pts, np.ones((len(pts), 1))], axis=-1)  # promotes to f64
+    chassis = (A_f32 @ ph.T).T[:, :3]
+    m = (
+        (chassis[:, 0] >= crop["x_min"]) & (chassis[:, 0] <= crop["x_max"])
+        & (chassis[:, 1] >= crop["y_min"]) & (chassis[:, 1] <= crop["y_max"])
+        & (chassis[:, 2] >= crop["z_min"]) & (chassis[:, 2] <= crop["z_max"])
+    )
+    out = []
+    for c in range(len(chassis2cam)):
+        ch_h = np.concatenate([chassis, np.ones((len(chassis), 1))], axis=-1)
+        cam = (chassis2cam[c] @ ch_h.T).T[:, :3]
+        proj = (K_scaled[c] @ cam.T).T
+        mask_z = proj[:, 2] > 0
+        with np.errstate(all="ignore"):
+            div = proj / proj[:, 2:]
+        keep = (
+            m & mask_z & (div[:, 2] > 0)
+            & (div[:, 0] >= 0) & (div[:, 0] < width)
+            & (div[:, 1] >= 0) & (div[:, 1] < height)
+        )
+        out.append((div[:, [1, 0]], keep))
+    return out

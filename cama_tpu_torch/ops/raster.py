@@ -265,3 +265,32 @@ def build_color_table(class_names):
         eff = name if name == "lane_marking" else "Crosswalk_Line"
         rows.append(COLOR_MAPS[eff][::-1])  # BGR, as cv2 draws on BGR images
     return np.asarray(rows, dtype=np.uint8)
+
+
+def composite_overlay_host(image_bgr, packed, color_table):
+    """NumPy composite of a packed raster (-1 = unpainted) onto a host
+    image (a copy of cama_tpu/ops/raster.py:composite_overlay_host)."""
+    packed = np.asarray(packed)
+    painted = packed >= 0
+    out = np.array(image_bgr, copy=True)
+    out[painted] = color_table[packed[painted] % MAX_CLS]
+    return out
+
+
+def rasterize_exact_host(image_bgr, vu_list, class_names, color_table=None):
+    """Reference-exact host rasterization via cv2: draws circles in order
+    with cv2.circle (a copy of cama_tpu/ops/raster.py:rasterize_exact_host;
+    the anchor every lane is validated against).
+
+    vu_list: [(class_name, vu [P, 2] float)] per instance, already masked.
+    """
+    import cv2
+
+    img = np.array(image_bgr, copy=True)
+    for cls_name, vu in vu_list:
+        pts = np.asarray(vu).astype(np.int32)
+        eff = cls_name if cls_name == "lane_marking" else "Crosswalk_Line"
+        color = tuple(COLOR_MAPS[eff][::-1].tolist())
+        for v, u in pts:
+            cv2.circle(img, (int(u), int(v)), 2, color, -1)
+    return img

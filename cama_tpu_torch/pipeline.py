@@ -33,11 +33,18 @@ dense rasters with one raster stage per chunk over all of them.
 
 The device is explicit: `device='cuda'` runs the kernels and raises without
 a card; `device='cpu'` runs the plain PyTorch versions (what the tests do).
-The JAX package's adaptive warm-up lane and its counts sidecar are not part
-of this package.
+The counting pass's maxima persist per clip in
+.cama_tpu/overlay_counts.json, the file the JAX package uses, under keys of
+this package's own (one per lane), so a later process skips the pass.
+ClipPipeline.iter_overlay_rasters_exact is the bit-exact lane: the f32
+projection with ambiguity flags, the flagged points recomputed on the host
+in the reference's f64 chain and patched in before the raster.  The JAX
+package's adaptive warm-up lane is not part of this package.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -68,7 +75,9 @@ from cama_tpu_torch.ops.geometry import (
     crop_bounds,
     crop_compact_project,
     crop_mask,
+    project_frame_exact,
     project_frames,
+    project_frames_checked,
 )
 from cama_tpu_torch.ops.pallas_project import project_frame_pallas
 from cama_tpu_torch.ops.raster import (
@@ -241,6 +250,32 @@ def _overlay_chunk(points, valid, cls, A, B, frame_valid, crop_lo, crop_hi,
     return (pack_cls_2bit(rasters) if two_bit else rasters), kept
 
 
+def _exact_patch_raster_chunk(vu, keep, cls, ids, corr_vu, corr_keep,
+                              corr_valid, width, height, k):
+    """Patch host-recomputed exact values into a chunk's projection and
+    rasterize (the exact lane's second device pass).
+
+    vu [F, C, P, 2] / keep [F, C, P]: the checked projection's outputs.
+    ids [F, M] int point indices; slots with corr_valid [F, M] false are
+    dropped (they are scattered into a row P past the points, which is
+    sliced away).  corr_vu [F, C, M, 2] carries floor(exact) + 0.5 pixel
+    centres (truncation-safe), corr_keep [F, C, M] the exact keep masks.
+    Patched points retain their point index, so compact_points' paint order
+    is untouched.  Returns (class rasters [F, C, H, W] uint8, the largest
+    effective count, a 0-d tensor the caller holds against k)."""
+    F, C, P = keep.shape
+    idx = torch.where(corr_valid, ids.to(torch.int64), P)[:, None, :]
+    idx = idx.expand(F, C, idx.shape[-1])
+    vu_p = torch.nn.functional.pad(vu, (0, 0, 0, 1))
+    vu_p.scatter_(2, idx[..., None].expand(*idx.shape, 2), corr_vu)
+    keep_p = torch.nn.functional.pad(keep, (0, 1))
+    keep_p.scatter_(2, idx, corr_keep)
+    vals, counts = compact_points(vu_p[:, :, :P], keep_p[:, :, :P], cls,
+                                  width, height, k)
+    return (packed_to_cls(rasterize_from_compact(vals, width, height)),
+            counts.max())
+
+
 def _project_compact_chunk(points, valid, cls, A, B, frame_valid, crop_lo,
                            crop_hi, width, height, k, lane="compact",
                            k_cap=None):
@@ -370,6 +405,9 @@ class ClipPipeline:
         self._fused_k = {}    # source -> the fused kernel's union cap
         self._two_stage = {}  # source -> k1 of the two-stage split, or None
         self._k = {}          # source -> the lane's dense list size
+        # one entry per chunk the exact lane served: its patch size M and
+        # the flagged points of each real frame
+        self.exact_stats = []
         self._crop_lo, self._crop_hi = crop_bounds()
         self._color_tables = {
             src: build_color_table(self.scene.flat[src].class_names)
@@ -429,9 +467,23 @@ class ClipPipeline:
         points, else None; and 'sparse' when k * 4 bytes per camera beat the
         dense raster's bytes on the link.  _k is the list size of the
         lane's dense program: the union cap for 'fused', k for 'pallas' and
-        'compact', P for 'scatter', which has no list."""
+        'compact', P for 'scatter', which has no list.
+
+        With configs['scene_cache'] (default on) the three maxima persist in
+        .cama_tpu/overlay_counts.json under _counts_sidecar_key, and a later
+        pipeline or process on the same clip and lane skips the pass."""
         if source in self._mode:
             return self._mode[source]
+        entry = self._counts_sidecar(source)
+        maxima = entry and self._counts_sidecar_load(*entry)
+        if maxima is None:
+            maxima = self._count_maxima(source)
+            if entry is not None:
+                self._counts_sidecar_store(*entry, *maxima)
+        return self._finish_overlay_mode(source, *maxima)
+
+    def _count_maxima(self, source):
+        """The counting pass (overlay_mode): (mc_crop, mc, mc_union)."""
         st = self.scene_tensors(source)
         P = int(st.points.shape[0])
         h, w = self.scene.output_size
@@ -463,14 +515,92 @@ class ClipPipeline:
                 per_cam.append(eff.sum(-1, dtype=torch.int32))
                 union.append(eff.any(-2).sum(-1, dtype=torch.int32))
             per_cam, union = torch.cat(per_cam), torch.cat(union)
-        mc_crop, mc, mc_union = (int(v) for v in torch.stack(
+        return tuple(int(v) for v in torch.stack(
             [crop.max(), per_cam.max(), union.max()]).tolist())
-        return self._finish_overlay_mode(source, mc_crop, mc, mc_union, P)
 
-    def _finish_overlay_mode(self, source, mc_crop, mc, mc_union, P):
+    def _counts_sidecar(self, source):
+        """(path, key) of this source's entry in the clip's counts sidecar,
+        or None when configs['scene_cache'] is off (nothing is read or
+        written then)."""
+        if not self.configs.get("scene_cache", True):
+            return None
+        return (os.path.join(self._cache_dir(), "overlay_counts.json"),
+                self._counts_sidecar_key(source))
+
+    def _counts_sidecar_key(self, source):
+        """Everything that determines the counting pass's maxima: the point
+        tensors, the frame matrices (trajectory + calibration + sync), the
+        crop box and the output size, as the JAX package hashes them, plus
+        this package's name and the lane.  The maxima come from the lane's
+        own projection, so neither package reads the other's entry and no
+        lane reads another's; both packages share the file and ignore the
+        keys they do not know."""
+        fm = self.frame_matrices(source)
+        fp = self.scene.flat[source]
+        h = hashlib.sha256()
+        for arr in (fp.points, fp.valid, fp.cls, fm.A, fm.B, fm.frame_valid,
+                    self._crop_lo, self._crop_hi):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        h.update(repr((source, tuple(self.scene.output_size))).encode())
+        h.update(repr(("cama_tpu_torch", self.raster_kernel)).encode())
+        return h.hexdigest()
+
+    @staticmethod
+    def _counts_sidecar_load(path, key):
+        """(mc_crop, mc, mc_union) stored under `key`, or None."""
+        try:
+            with open(path) as f:
+                entry = json.load(f).get(key)
+            if not entry or len(entry) != 3:
+                return None
+            return tuple(int(v) for v in entry)
+        except (OSError, ValueError, TypeError, AttributeError):
+            return None
+
+    @staticmethod
+    def _counts_sidecar_store(path, key, mc_crop, mc, mc_union):
+        """Add the entry, keep the 32 most recent, and replace the file
+        atomically.  An unwritable clip directory is not an error: the
+        counts are measured again next time."""
+        try:
+            data = {}
+            if os.path.exists(path):
+                try:
+                    with open(path) as f:
+                        data = json.load(f)
+                except (OSError, ValueError):
+                    data = {}
+            data[key] = [int(mc_crop), int(mc), int(mc_union)]
+            if len(data) > 32:
+                data = dict(list(data.items())[-32:])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(data, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
+    def crop_compact_k(self, source):
+        """k1 of the crop-first split when the counting pass engaged it, else
+        None: the sizing the overlay lanes use, for callers that bound
+        per-point work with it (map evaluation).  Consults only what is
+        already known, this process's counting result or the sidecar, and
+        never runs the counting pass itself: compaction stays off until an
+        overlay pass has sized the clip."""
+        if source not in self._mode:
+            entry = self._counts_sidecar(source)
+            maxima = entry and self._counts_sidecar_load(*entry)
+            if maxima is None:
+                return None
+            self._finish_overlay_mode(source, *maxima)
+        return self._two_stage.get(source)
+
+    def _finish_overlay_mode(self, source, mc_crop, mc, mc_union):
         """The counting maxima -> the (mode, k) decision, the union cap, the
         two-stage split and the dense list size (overlay_mode)."""
         h, w = self.scene.output_size
+        P = int(self.scene.flat[source].points.shape[0])
         k = _pow2_cap(mc, P)
         k1 = _pow2_cap(mc_crop, P)
         self._fused_k[source] = _pow2_cap(mc_union, P)
@@ -640,6 +770,118 @@ class ClipPipeline:
                 if fidx >= F or not fm.frame_valid[fidx]:
                     continue
                 yield int(fm.frame_indices[fidx]), rasters[kk]
+
+    def iter_overlay_rasters_exact(self, source, patch_cap_min=512):
+        """The bit-exact overlay stream: yields (image_idx, cls_raster
+        [C, H, W] uint8 on host) like iter_overlay_rasters, with rasters
+        bitwise equal to the float64 host-exact lane (project_frame_exact
+        + cv2.circle) and so to the reference renderer.
+
+        Per chunk, project_frames_checked projects every point in f32 and
+        flags those whose keep guards or pixel floor sit within the f32
+        error of a decision boundary (a handful per frame).  Only the
+        flagged points are recomputed on the host in the reference's f64
+        chain and patched into the device arrays before the compaction and
+        raster pass (_exact_patch_raster_chunk); everything unflagged
+        quantizes as the f64 chain does.  Lists hold k_compact + M rows,
+        M the chunk's patch size; an overflow raises."""
+        fm, _, _, fv, F = self._chunked_AB(source)
+        st = self.scene_tensors(source)
+        B_lo = torch.from_numpy(self.exact_B_lo(source)).to(self.device)
+        pts_np = self.scene.flat[source].points
+        P = int(st.points.shape[0])
+        C = len(self.scene.camera_list)
+        h, w = self.scene.output_size
+        _, k_compact = self.overlay_mode(source)
+
+        for s in range(0, len(fv), self.chunk):
+            sl = slice(s, s + self.chunk)
+            with self.timers.phase("exact_project"):
+                vu, keep, amb = project_frames_checked(
+                    st.points, st.valid, st.A[sl], st.B[sl], B_lo[sl],
+                    st.frame_valid[sl], w, h, self._crop_lo, self._crop_hi)
+                amb_np = amb.cpu().numpy()
+            n_frames = amb_np.shape[0]
+            n_amb = int(amb_np.sum(axis=1).max())
+            M = patch_cap_min
+            while M < n_amb:
+                M *= 2
+            if M > P:
+                raise RuntimeError(
+                    f"{source}: exact lane: {n_amb} ambiguous points need a "
+                    f"patch of {M}, over the point count {P}")
+            with self.timers.phase("exact_host_patch"):
+                ids = np.full((n_frames, M), P, np.int64)
+                corr_vu = np.full((n_frames, C, M, 2), 0.5, np.float32)
+                corr_keep = np.zeros((n_frames, C, M), bool)
+                corr_valid = np.zeros((n_frames, M), bool)
+                for f in range(n_frames):
+                    fidx = s + f
+                    if fidx >= F or not fm.frame_valid[fidx]:
+                        continue
+                    pid = np.flatnonzero(amb_np[f])
+                    n = len(pid)
+                    if n == 0:
+                        continue
+                    ids[f, :n] = pid
+                    corr_valid[f, :n] = True
+                    # the reference's exact f64 chain, the same call as
+                    # validate.host_exact_frames
+                    cam_outs = project_frame_exact(
+                        pts_np[pid],
+                        np.linalg.inv(fm.chassis2world_f32[fidx]),
+                        self.scene.chassis2cam, self.scene.K_scaled, w, h)
+                    for c, (vu_e, keep_e) in enumerate(cam_outs):
+                        with np.errstate(invalid="ignore"):
+                            q = np.floor(np.nan_to_num(
+                                vu_e, nan=0.0, posinf=0.0, neginf=0.0)) + 0.5
+                        corr_vu[f, c, :n] = np.where(keep_e[:, None], q, 0.5)
+                        corr_keep[f, c, :n] = keep_e
+            k_total = k_compact + M
+            with self.timers.phase("device_dispatch"):
+                rasters, cnt_max = _exact_patch_raster_chunk(
+                    vu, keep, st.cls,
+                    *(torch.from_numpy(a).to(self.device)
+                      for a in (ids, corr_vu, corr_keep, corr_valid)),
+                    w, h, k_total)
+            with self.timers.phase("raster_fetch"):
+                cnt_max = int(cnt_max)
+                if cnt_max > k_total:
+                    raise RuntimeError(
+                        f"{source}: exact lane: a frame of the chunk at "
+                        f"frame {s} keeps {cnt_max} list rows, over the "
+                        f"list size k={k_total}")
+                rasters = rasters.cpu().numpy()
+            self.exact_stats.append(
+                {"M": M, "flagged": amb_np.sum(axis=1)[:F - s].tolist()})
+            for f in range(n_frames):
+                fidx = s + f
+                if fidx >= F or not fm.frame_valid[fidx]:
+                    continue
+                yield int(fm.frame_indices[fidx]), rasters[f]
+
+    def exact_B_lo(self, source):
+        """[Fp, C, 3, 4] float32: what the f32 cast of the f64-composed B
+        rounded away (~1e-3 px of u/v under cancellation), padded like
+        _chunked_AB's B.  It rides along with B so the compensated
+        re-projection of project_frames_checked reconstructs the
+        full-precision value."""
+        fm, _, B, _, F = self._chunked_AB(source)
+        B64 = np.zeros(B.shape, np.float64)
+        B64[:F] = fm.B
+        return (B64 - B.astype(np.float64)).astype(np.float32)
+
+    def project_source(self, source):
+        """All frames' (vu, keep) as tensors on the device (for metrics and
+        export).  Memory: F * C * P entries; chunk by hand when that does
+        not fit."""
+        fm, _, _, _, F = self._chunked_AB(source)
+        st = self.scene_tensors(source)
+        h, w = self.scene.output_size
+        vu, keep = project_frames(st.points, st.valid, st.A, st.B,
+                                  st.frame_valid, w, h, self._crop_lo,
+                                  self._crop_hi)
+        return fm, vu[:F], keep[:F]
 
     # ---------------- host compositing ----------------
 

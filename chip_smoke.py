@@ -53,13 +53,48 @@ next to this script):
      for the main path, one for each other stream), with the host phase
      split and the device busy share (torch.profiler).
 
+  5. the correctness path (cama_tpu_torch.validate), all on the wide
+     fixture's 'cama' source:
+     - the error-free-transform probe on the card: _df_dot4 on the triple
+       that exposed a compiler's rewrite, within 1e-7 relative of the
+       float64 sum, and _two_prod / _two_sum exact on seeded data;
+     - the exact lane: ClipPipeline(raster_kernel='compact').
+       iter_overlay_rasters_exact, every frame's class raster byte-equal to
+       the float64 anchor that needs no cv2 (validate.host_exact_rasters:
+       project_frame_exact per frame, floored, painted by
+       rasterize_cls_host); prints the flagged points per frame, the patch
+       size M, the lane's phase split, project_frames_checked's ms per
+       chunk (CUDA events, and the card alone), its device launches per
+       frame and the lane's peak device memory;
+     - the agreement matrix: each of validate.DEVICE_PATHS forced through
+       validate.forced_path_stream, its minimum per-frame agreement with
+       that anchor ('exact' must be 1.0, the others >= AGREE_MIN); 'fused'
+       must launch fused_compact_project and 'pallas' project_frame_pallas,
+       and no kernel's plain version may run;
+     - when cv2 imports: validate.main on the default fixture with images,
+       its JSON report printed, ok required (the report needs cv2 to read
+       and paint images; without it only this sub-phase is left out, and
+       the line says so);
+     - the counts sidecar: a second pipeline on the clip decides the same
+       mode with 0 counting launches; time to the first frame's lists with
+       and without the sidecar;
+     - a measurement that no path of the port uses: a float64 projection on
+       the card in project_frame_exact's op order (matmul, and elementwise)
+       against the host chain's keep bits and pixel floors, with its time.
+
+Pipelines of phases 2-4 that are expected to run the counting pass first
+delete the clip's counts sidecar (forget_counts).
+
 The last two lines are the kernels' JSON record and the result line.  The
 script fails if any module of jax or of the JAX package cama_tpu was
-loaded.  Needs numpy and torch with CUDA, nvcc and g++; no cv2, yaml or
-ffmpeg.
+loaded.  Needs numpy and torch with CUDA, nvcc and g++; no yaml or ffmpeg,
+and cv2 only for the one sub-phase named above.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
 import re
@@ -474,6 +509,347 @@ def host_paint_ms(pipe, source, payloads, kind, pool, passes=3):
     return statistics.median(times)
 
 
+def forget_counts(clip):
+    """Delete the clip's counts sidecar, so the next pipeline on it runs the
+    counting pass."""
+    path = os.path.join(clip, ".cama_tpu", "overlay_counts.json")
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def valid_ids(pipe, source):
+    fm = pipe.frame_matrices(source)
+    return {int(i) for i, v in zip(fm.frame_indices, fm.frame_valid) if v}
+
+
+def eft_probe(dev):
+    """The error-free transforms on the card.  Returns (relative error of
+    _df_dot4's s + e on the probe triple against the float64 sum, entries of
+    seeded data where _two_prod's p + e is not the float64 product exactly,
+    the same for _two_sum)."""
+    import numpy as np
+    import torch
+
+    from cama_tpu_torch.ops import geometry as tg
+
+    row = np.array([[612.9723510742188, -664.3383178710938,
+                     -0.1483260989189148, 5025.9521484375],
+                    [1.0, 2.0, 3.0, 4.0], [0.1, 0.2, 0.3, 0.4]], np.float32)
+    p4 = np.array([-257.9800109863281, -243.37962341308594,
+                   0.07289975136518478, 1.0], np.float32)
+    s, e = tg._df_dot4(torch.from_numpy(row).to(dev),
+                       torch.from_numpy(p4).to(dev))
+    want = float(np.sum(row[0].astype(np.float64) * p4.astype(np.float64)))
+    rel = abs(float(s[0]) + float(e[0]) - want) / abs(want)
+    rng = np.random.default_rng(11)
+    a = (rng.normal(size=1 << 20) * 50.0).astype(np.float32)
+    b = (rng.normal(size=1 << 20) * 7.0).astype(np.float32)
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    bad = []
+    for fn, want in ((tg._two_prod, a.astype(np.float64) * b),
+                     (tg._two_sum, a.astype(np.float64) + b)):
+        v, err = fn(ta, tb)
+        got = v.cpu().numpy().astype(np.float64) + err.cpu().numpy()
+        bad.append(int((got != want).sum()))
+    return rel, bad[0], bad[1]
+
+
+def lists_to_raster(vals, counts, width, height):
+    """Sparse lists (vals [C, k] encodings in paint order, counts [C]) ->
+    the class raster [C, H, W] uint8 they paint, by rasterize_cls_host."""
+    import numpy as np
+
+    from cama_tpu_torch.ops.raster import MAX_CLS
+    from cama_tpu_torch.pipeline import rasterize_cls_host
+
+    out = []
+    for c in range(vals.shape[0]):
+        enc = vals[c, :int(counts[c])]
+        pix = enc // MAX_CLS
+        vu = np.stack([pix // width, pix % width], -1).astype(np.float32)
+        out.append(rasterize_cls_host(vu[None], np.ones((1, len(enc)), bool),
+                                      enc % MAX_CLS, width, height)[0])
+    return np.stack(out)
+
+
+def f64_on_card(pipe, source, dev, card):
+    """An open question measured, not a path of the port: does a float64
+    projection on the card, in project_frame_exact's op order, give the
+    host chain's keep bits and pixel floors?  Two variants per frame: the
+    matrix products as torch.matmul (cuBLAS), and as elementwise
+    ((m0*x + m1*y) + m2*z) + m3 rows.  Prints, over every valid frame, the
+    point-cameras whose keep bit differs from the host's and the kept ones
+    whose floor differs, and the ms per chunk of CHUNK frames."""
+    import numpy as np
+    import torch
+
+    from cama_tpu_torch.ops.geometry import project_frame_exact
+    from cama_tpu_torch.ops.lift import CROP_BOX as crop
+    from cama_tpu_torch.tools.bench_kernels import time_ms
+
+    scene, fm = pipe.scene, pipe.frame_matrices(source)
+    fp = scene.flat[source]
+    h, w = scene.output_size
+    f64 = dict(dtype=torch.float64, device=dev)
+    pts = torch.from_numpy(fp.points).to(**f64)
+    ph = torch.cat([pts, torch.ones((len(pts), 1), **f64)], dim=-1)
+    c2c = torch.from_numpy(scene.chassis2cam).to(**f64)
+    K = torch.from_numpy(scene.K_scaled).to(**f64)
+
+    def rows(m, x):
+        """m [R, 4 or 3] applied to x [P, 4 or 3], summed left to right."""
+        acc = m[:, 0, None] * x[:, 0]
+        for j in range(1, m.shape[1]):
+            acc = acc + m[:, j, None] * x[:, j]
+        return acc.T
+
+    def frame(A64, matmul):
+        mm = (lambda m, x: (m @ x.T).T) if matmul else rows
+        chassis = mm(A64, ph)[:, :3]
+        m = ((chassis[:, 0] >= crop["x_min"]) & (chassis[:, 0] <= crop["x_max"])
+             & (chassis[:, 1] >= crop["y_min"]) & (chassis[:, 1] <= crop["y_max"])
+             & (chassis[:, 2] >= crop["z_min"]) & (chassis[:, 2] <= crop["z_max"]))
+        ch_h = torch.cat([chassis, torch.ones((len(chassis), 1), **f64)], -1)
+        vus, keeps = [], []
+        for c in range(len(c2c)):
+            proj = mm(K[c], mm(c2c[c], ch_h)[:, :3])
+            div = proj / proj[:, 2:]
+            keeps.append(m & (proj[:, 2] > 0) & (div[:, 2] > 0)
+                         & (div[:, 0] >= 0) & (div[:, 0] < w)
+                         & (div[:, 1] >= 0) & (div[:, 1] < h))
+            vus.append(div[:, [1, 0]])
+        return torch.stack(vus), torch.stack(keeps)
+
+    frames = [k for k in range(len(fm.frame_indices)) if fm.frame_valid[k]]
+    A64s = [torch.from_numpy(np.linalg.inv(fm.chassis2world_f32[k]))
+            .to(**f64) for k in frames]
+    result = {}
+    for label, matmul in (("matmul (cuBLAS)", True), ("elementwise", False)):
+        keep_diff = floor_diff = total = 0
+        for k, A64 in zip(frames, A64s):
+            vu_d, keep_d = (t.cpu().numpy() for t in frame(A64, matmul))
+            host = project_frame_exact(
+                fp.points, np.linalg.inv(fm.chassis2world_f32[k]),
+                scene.chassis2cam, scene.K_scaled, w, h)
+            for c, (vu_h, keep_h) in enumerate(host):
+                keep_diff += int((keep_d[c] != keep_h).sum())
+                both = keep_d[c] & keep_h
+                floor_diff += int((np.floor(vu_d[c][both])
+                                   != np.floor(vu_h[both])).any(-1).sum())
+                total += len(keep_h)
+        ms = time_ms(lambda: [frame(A64, matmul) for A64 in A64s[:CHUNK]],
+                     runs=5)
+        result[label] = (keep_diff, floor_diff, total, ms)
+    say("exact", "float64 on the card in project_frame_exact's op order "
+                 f"(measurement only; the exact lane does not use it), "
+                 f"{len(frames)} frames of {len(pts)} points: "
+                 + "; ".join(
+                     f"{label}: keep bits differing from the host chain's "
+                     f"{kd}, floors differing among the kept {fd}, of {n} "
+                     f"point-cameras, {ms:.3f} ms per chunk of {CHUNK} frames"
+                     for label, (kd, fd, n, ms) in result.items())
+                 + f" | {card}")
+
+
+def correctness_phase(clip, dev, card):
+    """Phase 5 (module docstring).  Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from cama_tpu_torch import pipeline as tp
+    from cama_tpu_torch import validate
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+    from cama_tpu_torch.ops import fused_compact as fc
+    from cama_tpu_torch.ops import geometry as tg
+    from cama_tpu_torch.ops import paint
+    from cama_tpu_torch.ops import pallas_project as pp
+    from cama_tpu_torch.tools.bench_kernels import time_ms
+
+    rel, bad_prod, bad_sum = eft_probe(dev)
+    say("exact", f"error-free transforms on the card: _df_dot4 probe s + e "
+                 f"off the float64 sum by {rel:.3e} relative (< 1e-7); "
+                 f"_two_prod inexact on {bad_prod}, _two_sum on {bad_sum} of "
+                 f"1048576 seeded pairs (each must be 0)")
+    if not rel < 1e-7 or bad_prod or bad_sum:
+        raise RuntimeError("an error-free transform is not exact on the card")
+
+    # ---- the exact lane at full width ----
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = tp.ClipPipeline(clip_path=clip, chunk=CHUNK,
+                           raster_kernel="compact", device=dev)
+    h, w = pipe.scene.output_size
+    ids = valid_ids(pipe, "cama")
+    t0 = time.perf_counter()
+    exact = dict(pipe.iter_overlay_rasters_exact("cama"))
+    first_secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stats = list(pipe.exact_stats)
+    pipe.timers = type(pipe.timers)()
+    t0 = time.perf_counter()
+    again = dict(pipe.iter_overlay_rasters_exact("cama"))
+    warm_secs = time.perf_counter() - t0
+    split = {k: 1000.0 * v / len(stats) for k, v in pipe.timers.total.items()}
+    t0 = time.perf_counter()
+    anchor = validate.host_exact_rasters(pipe, "cama", ids)
+    anchor_secs = time.perf_counter() - t0
+    apart = pixels_apart(exact, anchor) + pixels_apart(again, anchor)
+    flagged = [n for s in stats for n in s["flagged"]]
+    P = int(pipe.scene.flat["cama"].points.shape[0])
+    say("exact", f"exact lane, wide fixture 'cama' ({P} points, {len(exact)} "
+                 f"frames, chunk {CHUNK}, {w}x{h}): pixels differing from the "
+                 f"float64 anchor (project_frame_exact + rasterize_cls_host, "
+                 f"{anchor_secs:.2f} s on the host) {apart} over two passes "
+                 f"(must be 0); flagged points per frame max {max(flagged)}, "
+                 f"mean {statistics.mean(flagged):.2f}, "
+                 f"{100.0 * statistics.mean(flagged) / P:.4f} % of the "
+                 f"points; patch size M {sorted({s['M'] for s in stats})}; "
+                 f"list size {pipe.overlay_mode('cama')[1]} + M")
+    if apart or set(exact) != ids or not all(r.any() for r in exact.values()):
+        raise RuntimeError("the exact lane is not bit-exact")
+    st = pipe.scene_tensors("cama")
+    B_lo = torch.from_numpy(pipe.exact_B_lo("cama")).to(dev)
+    sl = slice(0, CHUNK)
+
+    def checked():
+        return tg.project_frames_checked(
+            st.points, st.valid, st.A[sl], st.B[sl], B_lo[sl],
+            st.frame_valid[sl], w, h, pipe._crop_lo, pipe._crop_hi)
+
+    ms_checked = time_ms(checked, runs=5)
+    seen, card_ms = device_work(checked, reps=2)
+    n_chunks = len(stats)
+    say("exact", f"project_frames_checked, one chunk of {CHUNK} frames: "
+                 f"{ms_checked:.3f} ms by CUDA events (median of 5), "
+                 f"{fmt(card_ms, 1.0)} ms on the card alone, "
+                 + ("launches not measured" if seen is None else
+                    f"{sum(seen.values())} device launches = "
+                    f"{sum(seen.values()) / CHUNK:.1f} a frame")
+                 + f"; the whole lane {1000.0 * warm_secs / n_chunks:.3f} ms "
+                 f"a chunk warm (wall; first pass "
+                 f"{1000.0 * first_secs / n_chunks:.3f}), phase split "
+                 f"ms/chunk: "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                 + f"; peak device memory of the lane "
+                 f"{peak / 2**20:.1f} MiB, of which {resident / 2**20:.1f} "
+                 f"MiB were resident before it | {card}")
+
+    # ---- the agreement matrix ----
+    plain_calls = {}
+    originals = [(fc, "fused_compact_project_ref"), (fc, "count_union_ref"),
+                 (pp, "project_frame_pallas_ref"), (paint, "paint_max_ref")]
+
+    def counted(mod, name):
+        real = getattr(mod, name)
+
+        def call(*a, **k):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return real(*a, **k)
+
+        return real, call
+
+    reals = []
+    for mod, name in originals:
+        real, call = counted(mod, name)
+        reals.append((mod, name, real))
+        setattr(mod, name, call)
+    matrix, launched = {}, {}
+    try:
+        for name in validate.DEVICE_PATHS:
+            reset_all_launches()
+            _, kind, stream = validate.forced_path_stream(
+                pipe.scene, name, "cama", CHUNK, dev)
+            rasters = {idx: (payload[0] if kind == "raster"
+                             else lists_to_raster(*payload, w, h))
+                       for idx, *payload in stream}
+            if set(rasters) != ids:
+                raise RuntimeError(f"path {name!r} yields other frames")
+            matrix[name] = min(float((rasters[i] == anchor[i]).mean())
+                               for i in ids)
+            launched[name] = all_launches()
+    finally:
+        for mod, name, real in reals:
+            setattr(mod, name, real)
+    say("exact", "agreement matrix, min per-frame agreement of each path's "
+                 "class rasters with the float64 anchor: "
+                 + ", ".join(f"{k} {v:.10f}" for k, v in matrix.items())
+                 + f" ('exact' must be 1.0, the others >= {AGREE_MIN}); "
+                 f"launches 'fused' {launched['fused']}, 'pallas' "
+                 f"{launched['pallas']}; plain versions of kernels run: "
+                 f"{plain_calls or 0} (must be 0)")
+    if matrix["exact"] != 1.0 or min(matrix.values()) < AGREE_MIN:
+        raise RuntimeError("a path disagrees with the float64 anchor")
+    if (launched["fused"]["fused_compact_project"] < n_chunks
+            or launched["fused"]["project_frame_pallas"]
+            or launched["pallas"]["project_frame_pallas"] < n_chunks
+            or launched["pallas"]["fused_compact_project"] or plain_calls):
+        raise RuntimeError("'fused' or 'pallas' did not run its own kernel")
+
+    # ---- validate.main with images, where cv2 is installed ----
+    if importlib.util.find_spec("cv2") is None:
+        say("exact", "cv2 is not installed: validate.main (the image-level "
+                     "report) not run; the raster-level checks above ran")
+    else:
+        img_clip = make_fixture_clip(os.path.join(WORK, "validate"),
+                                     scene_name="scene-validate", n_frames=6)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = validate.main(["--clip", img_clip, "--frames", "3",
+                                "--device", DEVICE])
+        report = json.loads(out.getvalue().strip().splitlines()[-1])
+        say("exact", f"cv2 present: validate.main on the default fixture with "
+                     f"images, 3 frames a source, "
+                     f"{time.perf_counter() - t0:.2f} s, exit code {rc}: "
+                     f"{json.dumps(report)}")
+        if rc != 0 or report.get("ok") is not True \
+                or report.get("exact_lane_min_agreement") != 1.0:
+            raise RuntimeError("validate.main reports a failure")
+
+    # ---- the counts sidecar ----
+    first_ms = {"without": [], "with": []}
+    for _ in range(3):
+        forget_counts(clip)
+        seen_launches, decisions = {}, {}
+        for label in ("without", "with"):
+            reset_all_launches()
+            p = tp.ClipPipeline(clip_path=clip, chunk=CHUNK,
+                                raster_kernel="auto", device=dev)
+            p.scene_tensors("cama")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mode, k = p.serving_mode("cama")
+            head = next(iter(p.iter_sparse_points("cama", k=k)))
+            first_ms[label].append(1000.0 * (time.perf_counter() - t0))
+            seen_launches[label] = all_launches()
+            decisions[label] = ((mode, k), p._fused_k["cama"],
+                                p._two_stage["cama"], p._k["cama"],
+                                head[0], int(head[2].max()))
+        want = {"without": {"count_union": n_chunks,
+                            "fused_compact_project": 2 * n_chunks},
+                "with": {"count_union": 0,
+                         "fused_compact_project": n_chunks}}
+        for label, expect in want.items():
+            got = {k: seen_launches[label][k] for k in expect}
+            if got != expect:
+                raise RuntimeError(f"sidecar: {label} it, launches {got} != "
+                                   f"{expect}")
+        if decisions["with"] != decisions["without"]:
+            raise RuntimeError(f"sidecar: decisions differ: {decisions}")
+    say("exact", f"counts sidecar: a second pipeline decides "
+                 f"{decisions['with'][:4]} as the first did, with 0 "
+                 f"count_union launches and {n_chunks} fused_compact_project "
+                 f"(the first: {n_chunks} and {2 * n_chunks}); serving_mode "
+                 f"to the first frame's lists on the host, ms, 3 runs each: "
+                 f"without the sidecar "
+                 + " / ".join(f"{t:.3f}" for t in first_ms["without"])
+                 + ", with it "
+                 + " / ".join(f"{t:.3f}" for t in first_ms["with"])
+                 + f" | {card}")
+    f64_on_card(pipe, "cama", dev, card)
+
+
 def main():
     import numpy as np
     import torch
@@ -633,6 +1009,7 @@ def main():
     # the main path: the mode write_videos serves, with 'auto' (the CLI's
     # default lane)
     reset_all_launches()
+    forget_counts(clip)
     sp = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="auto",
                       device=dev)
     sp_lists, sp_mosaics = {}, {}
@@ -663,6 +1040,7 @@ def main():
     paths = {}
     for lane in ("fused", "pallas"):
         reset_all_launches()
+        forget_counts(clip)
         pipe = ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel=lane,
                             device=dev)
         streamed, mosaics = {}, {}
@@ -819,6 +1197,7 @@ def main():
         os.path.join(WORK, "default"), scene_name="scene-default",
         with_images=False)
     reset_all_launches()
+    forget_counts(clip)
     members = [ClipPipeline(clip_path=c, chunk=CHUNK, device=dev)
                for c in (clip, default_clip)]
     msp = tp.MultiScenePipeline(members, chunk=CHUNK)
@@ -1088,6 +1467,9 @@ def main():
                             for k, v in msp.timers.total.items())
                 + f" | {card}")
     pool.shutdown()
+
+    # ---- phase 5: the correctness path ----
+    correctness_phase(clip, dev, card)
 
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))

@@ -143,10 +143,88 @@ _CHILD_SPARSE_BATCHED = textwrap.dedent("""
 """)
 
 
-def _run_child(code, cwd):
+# jax and the JAX package both unimportable: the validation harness over
+# every path on CPU, and the CLI converting a nuScenes scene first.  The
+# devkit is replaced by tables the parent test wrote (sys.argv[1]): the
+# fake DB of tests/test_convert.py, whose module imports cama_tpu
+_CHILD_VALIDATE_CONVERT = textwrap.dedent("""
+    import json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["cama_tpu"] = None
+    import numpy as np
+    import yaml
+    from cama_tpu_torch import validate
+    from cama_tpu_torch.cli import main
+    from cama_tpu_torch.convert import nuscenes
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    root = tempfile.mkdtemp()
+    clip = make_fixture_clip(os.path.join(root, "c"), scene_name="s",
+                             n_frames=3)
+    report = os.path.join(root, "VALIDATE.json")
+    assert validate.main(["--clip", clip, "--frames", "2", "--device", "cpu",
+                          "--out", report]) == 0
+    with open(report) as f:
+        rep = json.load(f)
+    assert rep["ok"] and rep["exact_lane_min_agreement"] == 1.0
+    assert all(set(r["paths"]) == set(validate.DEVICE_PATHS)
+               for r in rep["sources"].values()) and len(rep["sources"]) == 2
+
+    class Maps:
+        def line_layer(self, location, layer):
+            y = 1598 if layer == "road_divider" else 1602
+            return [np.array([[590, y], [620, y]], float)]
+
+        def polygon_layer(self, location, layer):
+            if layer == "ped_crossing":
+                return [(np.array([[604, 1595], [606, 1595], [606, 1605],
+                                   [604, 1605]], float), [])]
+            if layer == "road_segment":
+                return [(np.array([[585, 1590], [625, 1590], [625, 1610],
+                                   [585, 1610]], float), [])]
+            return []
+
+    class TableDB:
+        def __init__(self, version, dataroot):
+            self.root = dataroot
+            with open(os.path.join(dataroot, "tables.json")) as f:
+                self.tables = json.load(f)
+        samples = property(lambda self: list(self.tables["sample"].values()))
+        scenes = property(lambda self: list(self.tables["scene"].values()))
+        def get(self, table, token):
+            return self.tables[table][token]
+        def cam_intrinsic(self, cam_token):
+            return np.array([[1266.4, 0, 816.3], [0, 1266.4, 491.5],
+                             [0, 0, 1.0]])
+        def file_path(self, filename):
+            return os.path.join(self.root, filename)
+        def map_source(self):
+            return Maps()
+
+    nuscenes.NuScenesDB = TableDB
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"version": "v1.0-test", "dataroot": sys.argv[1],
+                        "converted_dataroot": os.path.join(root, "conv"),
+                        "scene_names": ["scene-fake1"],
+                        "output_video_dir": os.path.join(root, "v"),
+                        "cama_configs": {"result_dir": "maps"}}, f)
+    assert main(["--config", cfg, "--device", "cpu"]) == 0
+    assert os.path.exists(os.path.join(root, "conv", "scene-fake1",
+                                       "attribute.json"))
+    assert os.listdir(os.path.join(root, "v")) == ["scene-fake1_nuScenes.mp4"]
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("VALIDATE_CONVERT_OK")
+""")
+
+
+def _run_child(code, cwd, *argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    return subprocess.run([sys.executable, "-c", code], cwd=str(cwd),
+    return subprocess.run([sys.executable, "-c", code, *argv], cwd=str(cwd),
                           env=env, capture_output=True, text=True, timeout=300)
 
 
@@ -175,6 +253,20 @@ def test_sparse_lane_and_batched_cli_without_jax_or_cama_tpu(tmp_path):
     assert "SPARSE_BATCHED_OK" in proc.stdout
 
 
+def test_validate_and_converting_cli_without_jax_or_cama_tpu(tmp_path):
+    import json
+
+    from test_convert import FakeDB
+
+    raw = tmp_path / "raw"
+    db = FakeDB(raw)  # writes the sensor files under raw/files
+    with open(raw / "tables.json", "w") as f:
+        json.dump(db.tables, f)
+    proc = _run_child(_CHILD_VALIDATE_CONVERT, tmp_path, str(raw))
+    assert proc.returncode == 0, proc.stderr
+    assert "VALIDATE_CONVERT_OK" in proc.stdout
+
+
 def _port_sources():
     """Every Python file of the port and chip_smoke.py, by path."""
     pkg = os.path.join(REPO, "cama_tpu_torch")
@@ -197,6 +289,9 @@ def test_port_sources_never_load_cama_tpu():
                     offenders.append(f"{os.path.relpath(path, REPO)}:{n}: "
                                      f"{line.strip()}")
     assert not offenders, offenders
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"chip_smoke.py", "cama_tpu_torch/validate.py",
+            "cama_tpu_torch/convert/nuscenes.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -217,4 +312,6 @@ def test_port_sources_never_import_jax():
                             offenders.append(path)
     assert not offenders, offenders
     assert {"pipeline.py", "ops/pallas_project.py", "ops/paint.py",
-            "tools/bench_kernels.py"} <= scanned, sorted(scanned)
+            "tools/bench_kernels.py", "validate.py", "convert/geom.py",
+            "convert/vecmap.py", "convert/nuscenes.py"} <= scanned, \
+        sorted(scanned)
