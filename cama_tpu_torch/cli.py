@@ -41,14 +41,16 @@ def _extract_all_labels(zip_filepath, scene_names, dest_dir):
 def _isolated(label, failures, fn, *args, **kwargs):
     """Run one scene in isolation: an exception prints its traceback and
     records (label, repr(e)) in `failures`; the batch keeps going and the
-    exit code reports it."""
+    exit code reports it.  `label` may be a list (a batched group): one
+    failure is recorded per member."""
     try:
         return fn(*args, **kwargs)
     except Exception as e:
         import traceback
 
         traceback.print_exc()
-        failures.append((label, repr(e)))
+        for lb in (label if isinstance(label, list) else [label]):
+            failures.append((lb, repr(e)))
         return None
 
 

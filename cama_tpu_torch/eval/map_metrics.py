@@ -1,0 +1,1712 @@
+"""Map-annotation quality metrics on PyTorch: SRE + precision / recall / F1,
+and instance association.
+
+Counterpart of cama_tpu/eval/map_metrics.py, function for function.  The 3-D
+map annotation is reprojected into every camera image and compared with 2-D
+ground-truth lane segmentation masks (the clip format's
+`lane_ins_{camera}/<ms>.png` instance images):
+
+  * SRE (semantic reprojection error): mean distance in pixels from each
+    reprojected map point to the nearest ground-truth mask pixel, capped at
+    `max_radius` (points farther than the cap contribute the cap).
+  * precision: fraction of reprojected points within `tolerance` px of the
+    mask.
+  * recall: fraction of ground-truth mask pixels within `tolerance` px of a
+    reprojected point.
+  * F1 = 2PR / (P + R).
+
+No distance transform over the whole image is materialized for the default
+metric.  Distance to a mask is computed by iterated 3x3 max-dilation:
+
+    dist(p) = sum_{d=0}^{D-1} [ p not in dilate^d(mask) ]
+
+which is the Chebyshev (chessboard) distance capped at D.  Reductions over
+frames are plain sums.
+
+Everything here is plain tensor work (dilations, cumulative maxima along
+image rows, index_add_ and gather), on whatever device its inputs lie on;
+no hand-written kernel belongs to this module.  MapEvaluator runs on its
+pipeline's device: the card unless the pipeline was built with
+device='cpu'.
+
+Instance-id images are uint16, on the host and on the device.  PyTorch
+computes little on uint16, so the functions here reinterpret such a tensor
+as int16 (the same bits) where they only move ids around, and widen it to
+int32 where they compare them.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from cama_tpu_torch.ops.geometry import (
+    crop_compact_project_idx,
+    project_frames,
+)
+
+_EDT_INF = 1e4  # farther than any image diagonal; squared stays finite in f32
+
+PARTIAL_KEYS = ("sre_sum", "n_points", "n_hit", "gt_total", "gt_covered")
+
+
+def _bits16(t):
+    """A uint16 tensor reinterpreted as int16 (no copy); others unchanged."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _wide(ids):
+    """Instance ids as int32 values (a uint16 image widens without sign)."""
+    return ids.to(torch.int32)
+
+
+def _foreground(ids):
+    """[...] integer ids -> bool, id != 0."""
+    return _bits16(ids) != 0
+
+
+def _upload(arr, device):
+    """A NumPy array as a tensor on `device`.  To the card it goes through a
+    pinned staging buffer with a non-blocking copy, so the host does not
+    wait for the work already queued there."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def dilate3x3(mask):
+    """One round of 8-neighborhood binary dilation ([..., H, W] bool).  The
+    3x3 box separates: a 3-tap OR along the rows, then along the columns;
+    outside the image counts as False."""
+    h = mask.clone()
+    h[..., :, 1:] |= mask[..., :, :-1]
+    h[..., :, :-1] |= mask[..., :, 1:]
+    out = h.clone()
+    out[..., 1:, :] |= h[..., :-1, :]
+    out[..., :-1, :] |= h[..., 1:, :]
+    return out
+
+
+def _row_index(t):
+    """[H, 1] int32 row numbers of the image t [..., H, W]."""
+    return torch.arange(t.shape[-2], dtype=torch.int32,
+                        device=t.device)[:, None]
+
+
+def _nearest_rows(fg):
+    """For a foreground image fg [..., H, W] bool: (above, below) int32, the
+    row of the nearest foreground pixel at or above / at or below each pixel
+    in its column; -1 / H where there is none.  One cumulative maximum (and
+    one minimum) along the rows takes the place of a scan over them."""
+    H = fg.shape[-2]
+    row = _row_index(fg)
+    above = _cum_rows(torch.where(fg, row, -1), torch.cummax)
+    below = _cum_rows(torch.where(fg, row, H).flip(-2), torch.cummin).flip(-2)
+    return above, below
+
+
+def _cum_rows(x, op):
+    """torch.cummax / torch.cummin of x [..., H, W] along the rows.  On the
+    CPU the scan runs several times faster along the innermost axis, so x
+    is transposed for it; the card scans along the rows directly."""
+    if x.device.type == "cpu":
+        return op(x.transpose(-1, -2).contiguous(), dim=-1).values.transpose(-1, -2)
+    return op(x, dim=-2).values
+
+
+def _rows_dist(above, below, H, row):
+    """Float32 distances along the column to `above` and `below`.  A column
+    with nothing above holds 1e4 + y + 1 (a count that starts at 1e4 at the
+    top edge and grows by one per row), one with nothing below 1e4 + H - y:
+    the values the JAX scan carries, which later get squared and compared."""
+    fd = torch.where(above >= 0, row - above, row + int(_EDT_INF + 1))
+    bd = torch.where(below < H, below - row, (H + int(_EDT_INF)) - row)
+    return fd.to(torch.float32), bd.to(torch.float32)
+
+
+def _nearest_dist_rows(mask):
+    """[..., H, W] bool -> float32 distance along axis -2 to the nearest True
+    in the same column (at least 1e4 where the column is empty)."""
+    above, below = _nearest_rows(mask)
+    fd, bd = _rows_dist(above, below, mask.shape[-2], _row_index(mask))
+    return torch.minimum(fd, bd)
+
+
+def _shift_cols(a, dx, fill):
+    """a[..., x] -> a[..., x + dx], vacated columns filled with `fill`."""
+    if dx == 0:
+        return a
+    pad = torch.full_like(a[..., :abs(dx)], fill)
+    if dx > 0:
+        return torch.cat([a[..., dx:], pad], dim=-1)
+    return torch.cat([pad, a[..., :dx]], dim=-1)
+
+
+def squared_edt_within(mask, radius):
+    """Squared Euclidean distance transform, exact wherever the true distance
+    is <= radius (farther pixels carry overestimates >= radius^2, so
+    `min(sqrt(d2), radius)` equals the capped exact distance everywhere).
+
+    Same column pass as squared_edt, but the row reduction only considers
+    source columns within +-radius: O(H*W*radius) instead of O(H*W^2).
+    Every consumer of the transform caps at max_radius/tolerance, which is
+    tens of pixels while W is ~10^3.  The 2*radius shifted candidates are
+    folded into the result one at a time, in place."""
+    W = mask.shape[-1]
+    D0 = _nearest_dist_rows(mask) ** 2
+    best = D0.clone()
+    inf2 = np.float32(_EDT_INF ** 2)
+    for dx in range(1, radius + 1):
+        c = float(dx * dx)
+        n = min(dx, W)
+        if dx < W:
+            left, right = best[..., :W - dx], best[..., dx:]
+            left.copy_(torch.minimum(left, D0[..., dx:] + c))
+            right.copy_(torch.minimum(right, D0[..., :W - dx] + c))
+        # the columns a shift vacates hold 1e8 + dx^2, rounded to float32
+        fill = float(inf2 + np.float32(c))
+        best[..., W - n:].clamp_(max=fill)
+        best[..., :n].clamp_(max=fill)
+    return best
+
+
+def _column_table(W, device):
+    x = torch.arange(W, dtype=torch.float32, device=device)
+    return (x[:, None] - x[None, :]) ** 2  # [W(out), W(src)]
+
+
+def squared_edt(mask, block=8):
+    """Exact squared Euclidean distance transform ([..., H, W] bool -> f32).
+
+    Two separable passes: (1) the nearest True along each column (exact,
+    because min_y' (y-y')^2 is attained at the nearest y'), (2) a min-plus
+    reduction along rows, D[y,x] = min_x' ((x-x')^2 + d_col[y,x']^2),
+    evaluated `block` rows at a time so the [W, W] parabola table broadcasts
+    in bounded memory.  Matches scipy.ndimage.distance_transform_edt**2 of
+    ~mask."""
+    W = mask.shape[-1]
+    flat = (_nearest_dist_rows(mask) ** 2).reshape(-1, W)
+    d2 = _column_table(W, mask.device)
+    out = torch.empty_like(flat)
+    for s in range(0, flat.shape[0], block):
+        rows = flat[s:s + block]
+        out[s:s + block] = (rows[:, None, :] + d2[None]).amin(dim=-1)
+    return out.reshape(mask.shape)
+
+
+def frame_metrics(gt_mask, vu, keep, max_radius, tolerance,
+                  distance="chebyshev"):
+    """Per-(frame-)camera metric partials.
+
+    Args:
+        gt_mask: [C, H, W] bool ground-truth mask (already at output size)
+        vu:      [C, P, 2] float32 projected (v, u)
+        keep:    [C, P] bool
+        max_radius: int, the SRE distance cap (dilation rounds)
+        tolerance:  int, the precision/recall hit radius
+        distance: 'chebyshev' (iterated 8-neighborhood dilation) or
+            'euclidean' (exact separable squared-EDT, the papers' pixel
+            distance; quantifies the Chebyshev approximation)
+
+    Returns a dict of 0-d float32 tensors: sre_sum, n_points, n_hit
+    (precision numerator), gt_total, gt_covered (recall terms)."""
+    return _frame_metrics_impl(gt_mask, vu, keep, max_radius, tolerance,
+                               distance)
+
+
+def frame_metrics_chunk(gt_mask, vu, keep, fv, max_radius, tolerance,
+                        distance="chebyshev"):
+    """frame_metrics over a whole projection chunk at once.
+
+    Args mirror frame_metrics with a leading frame axis plus a validity
+    weight:
+        gt_mask: [K, C, H, W] bool (zeros for rows without GT)
+        vu/keep: [K, C, P, 2] / [K, C, P]
+        fv:      [K] float32 (or bool): 1.0 where the row is a real
+                 evaluated frame, 0.0 padding (invalid frame / GT absent)
+
+    Returns frame_metrics' dict with each entry summed over the valid
+    rows."""
+    p = frame_metrics_rows(gt_mask, vu, keep, max_radius, tolerance, distance)
+    z = fv.to(torch.float32)
+    return {k2: torch.sum(v * z) for k2, v in p.items()}
+
+
+def frame_metrics_rows(gt_mask, vu, keep, max_radius, tolerance,
+                       distance="chebyshev"):
+    """Per-row frame_metrics over a batch: [K, ...] inputs -> dict of [K]
+    partials (no reduction).  The multi-scene batch path groups rows by
+    scene on the host, so it needs the per-row values; frame_metrics_chunk
+    is this plus an fv-weighted sum."""
+    return _frame_metrics_impl(gt_mask, vu, keep, max_radius, tolerance,
+                               distance)
+
+
+def _unpack_bits(packed, width):
+    """np.packbits' inverse on tensors: [..., Wp] uint8 (big-endian bit
+    order) -> [..., width] bool, slicing off packbits' zero padding."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :width].to(torch.bool)
+
+
+def packbits(bits):
+    """np.packbits(bits, axis=-1) on tensors: [..., W] bool -> [..., ceil(W/8)]
+    uint8, big-endian bit order, the last byte zero-padded."""
+    W = bits.shape[-1]
+    b = torch.nn.functional.pad(bits.to(torch.uint8), (0, (-W) % 8))
+    b = b.reshape(bits.shape[:-1] + (-1, 8))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                           device=bits.device)
+    return (b * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def frame_metrics_chunk_packed(gt_packed, vu, keep, fv, width, max_radius,
+                               tolerance, distance="chebyshev"):
+    """frame_metrics_chunk fed by host-bitpacked masks ([K, C, H, W/8] uint8
+    via np.packbits(axis=-1)): an eighth of the bytes go to the device."""
+    gt = _unpack_bits(gt_packed, width)
+    return frame_metrics_chunk(gt, vu, keep, fv, max_radius, tolerance,
+                               distance)
+
+
+def frame_metrics_rows_packed(gt_packed, vu, keep, width, max_radius,
+                              tolerance, distance="chebyshev"):
+    """frame_metrics_rows fed by host-bitpacked masks (see
+    frame_metrics_chunk_packed): [K, ...] -> dict of [K] per-row partials."""
+    gt = _unpack_bits(gt_packed, width)
+    return frame_metrics_rows(gt, vu, keep, max_radius, tolerance, distance)
+
+
+def _project_compact_chunk_eval(points, valid, A, B, fv, width, height,
+                                lo, hi, k1):
+    """Chunked projection with crop-first compaction (the overlay two-stage
+    lane's stages 1 and 2, ops/geometry.crop_compact_project_idx): per
+    frame, points inside the camera-independent crop box compact to k1
+    survivors before the per-camera projections, so the downstream
+    per-point metric work (count scatters, vote gathers, all O(points))
+    runs over k1 instead of P.  keep requires the crop box, so the
+    kept-point set, and therefore every metric, is that of the full-P
+    projection.
+
+    Returns (vu [K, C, k1, 2], keep [K, C, k1], sel [K, k1] int32); sel
+    indexes the original point axis so callers compact any per-point array
+    (e.g. instance ids for association votes) with one gather."""
+    vu, keep, sel, _ = crop_compact_project_idx(
+        points, valid, A, B, fv, width, height, lo, hi, k1)
+    return vu, keep, sel.to(torch.int32)
+
+
+def _project_compact_scenes(points, valid, A, B, fv, width, height,
+                            lo, hi, k1):
+    """Scene-batched _project_compact_chunk_eval: [S, ...] stacked tensors
+    -> (vu [S, K, C, k1, 2], keep [S, K, C, k1], sel [S, K, k1]).  k1 is
+    the fleet-wide maximum of the members' crop-survivor sizings (each
+    member's own k1 bounds its survivors, so the maximum is safe for every
+    scene; padding points are invalid and never selected)."""
+    outs = [_project_compact_chunk_eval(points[s], valid[s], A[s], B[s],
+                                        fv[s], width, height, lo, hi, k1)
+            for s in range(points.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _project_scenes(points, valid, A, B, fv, width, height, lo, hi):
+    """Scene-batched projection: [S, ...] stacked tensors -> vu [S, K, C, P,
+    2], keep [S, K, C, P]."""
+    outs = [project_frames(points[s], valid[s], A[s], B[s], fv[s], width,
+                           height, lo, hi)
+            for s in range(points.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _scatter_ids(idx, vals, shape):
+    """Rebuild a dense id stack from COO (flat index, value) pairs; padding
+    entries carry idx == prod(shape) and are dropped."""
+    size = int(np.prod(shape, dtype=np.int64))
+    v = _bits16(vals)
+    buf = torch.zeros((size + 1,), dtype=v.dtype, device=v.device)
+    buf[idx.to(torch.int64)] = v
+    return buf[:-1].view(vals.dtype).reshape(tuple(shape))
+
+
+def device_ids(ids_b, device="cuda"):
+    """Upload a chunk's GT instance-id stack with few bytes.
+
+    Lane-geometry GT typically paints a few percent of pixels, so a sparse
+    COO upload (6 B/nonzero: int32 index + uint16 id, scattered on the
+    device) is taken whenever it moves fewer bytes than the dense uint16
+    stack; otherwise the stack goes up dense.  COO budgets round up to
+    powers of two (at least 1024), as in the JAX package."""
+    ids_b = np.ascontiguousarray(ids_b)
+    if ids_b.dtype != np.uint16:
+        if ids_b.max(initial=0) >= 65536:  # not an assert: -O must not let
+            # out-of-range ids wrap into other instances' votes silently
+            raise ValueError("instance ids exceed uint16")
+        ids_b = ids_b.astype(np.uint16)
+    flat = np.flatnonzero(ids_b)
+    # compare what each path actually moves: decide on the padded size
+    budget = 1 << max(10, (len(flat) - 1).bit_length() if len(flat) else 0)
+    if 6 * budget < 2 * ids_b.size:
+        idx = np.full((budget,), ids_b.size, np.int32)
+        vals = np.zeros((budget,), np.uint16)
+        idx[: len(flat)] = flat
+        vals[: len(flat)] = ids_b.flat[flat]
+        return _scatter_ids(_upload(idx, device), _upload(vals, device),
+                            ids_b.shape)
+    return _upload(ids_b, device)
+
+
+def _dist_rounds(max_radius, tolerance, distance):
+    """Radius the GT distance field must be exact within, per metric family
+    (chebyshev runs tolerance+1 rounds so the dilation geometry serves both
+    the capped distance sum and the hit test; euclidean's squared-EDT only
+    needs exactness to the larger of the two caps)."""
+    if distance == "euclidean":
+        return max(max_radius, tolerance)
+    return max(max_radius, tolerance + 1)
+
+
+def _dist_field(gt_mask, rounds, distance):
+    """GT distance field the per-point metric sums sample: a pure function
+    of the masks and the caps, so the resident evaluation path computes it
+    once per chunk and keeps it on the device across evaluations
+    (MapEvaluator._eval_scene_resident).
+
+    chebyshev: per-pixel not-covered count over `rounds` dilation passes
+    (dist[p] = min(chessboard distance to mask, rounds)), as uint8:
+    rounds < 256 holds for any sane pixel cap and quarters the resident
+    bytes of an f32 field.
+    euclidean: squared_edt_within's output (f32; overestimates beyond
+    `rounds` never change a capped consumer)."""
+    if distance == "euclidean":
+        return squared_edt_within(gt_mask, rounds)
+    assert rounds < 256, "distance cap exceeds the uint8 resident field"
+    dist_map = torch.zeros(gt_mask.shape, dtype=torch.uint8,
+                           device=gt_mask.device)
+    m = gt_mask
+    for _ in range(rounds):
+        dist_map += ~m
+        m = dilate3x3(m)
+    return dist_map
+
+
+def _vote_field(gt_ids, tolerance, assignment):
+    """Per-pixel GT instance vote map (0 = no instance within tolerance):
+    instance_votes_chunk's state before the gather, split out so the
+    resident path can keep it on the device (it too is a pure function of
+    the GT ids and the tolerance)."""
+    ids = _wide(gt_ids)
+    if assignment == "nearest":
+        d2, nid = nearest_id_within(ids, int(tolerance))
+        vm = torch.where(d2 <= float(tolerance) ** 2, nid, 0)
+    else:
+        vm = dilate_ids(ids, tolerance)
+    return vm.to(gt_ids.dtype)
+
+
+def _frame_metrics_from_field(gt_mask, dist_field, vu, keep, max_radius,
+                              tolerance, distance):
+    """Metric partials given a precomputed GT distance field (chebyshev
+    uint8 count or euclidean f32 squared-EDT, see _dist_field).  Inputs are
+    one frame's [C, ...] (0-d results) or a chunk's [K, C, ...] ([K]
+    results): every sum runs over the last three axes (C, H, W).
+
+    Point sums go through an index_add_ count raster, not per-point
+    gathers: sre_sum == sum over pixels of count * dist, because every kept
+    point at a pixel contributes that pixel's field value, and the count
+    raster doubles as the recall point raster.  For chebyshev every sum is
+    integer-valued (counts times integer capped distances, far below 2^24),
+    so f32 accumulation is exact in any order, atomics included.  For
+    euclidean, sre_sum terms are irrational (sqrt) and the order shows in
+    the last bits."""
+    H, W = gt_mask.shape[-2], gt_mask.shape[-1]
+    vi, ui = _clip_pixels(vu, H, W)
+    cnt = _point_count_raster(vi, ui, keep, H, W)  # [..., C, H, W] f32
+    pr = cnt > 0
+    if distance == "euclidean":
+        dist = torch.sqrt(dist_field).clamp_(max=float(max_radius))
+        hit = dist_field <= float(tolerance) ** 2
+        radius = max(max_radius, tolerance)
+        covered = gt_mask & (squared_edt_within(pr, radius)
+                             <= float(tolerance) ** 2)
+    else:
+        # the uint8 field caps at rounds >= tolerance+1, so the <= tolerance
+        # hit test is unaffected by the cap
+        dist = dist_field.clamp(max=max_radius).to(torch.float32)
+        hit = dist_field <= tolerance
+        # recall: dilate the projected point raster by `tolerance`,
+        # intersect gt
+        for _ in range(tolerance):
+            pr = dilate3x3(pr)
+        covered = gt_mask & pr
+    dims = (-3, -2, -1)
+    return {
+        "sre_sum": torch.sum(cnt * dist, dim=dims),
+        "n_points": torch.sum(cnt, dim=dims),
+        "n_hit": torch.sum(cnt * hit, dim=dims),
+        "gt_total": torch.sum(gt_mask, dim=dims).to(torch.float32),
+        "gt_covered": torch.sum(covered, dim=dims).to(torch.float32),
+    }
+
+
+def _frame_metrics_impl(gt_mask, vu, keep, max_radius, tolerance, distance):
+    rounds = _dist_rounds(max_radius, tolerance, distance)
+    field = _dist_field(gt_mask, rounds, distance)
+    return _frame_metrics_from_field(gt_mask, field, vu, keep, max_radius,
+                                     tolerance, distance)
+
+
+def _clip_pixels(vu, H, W):
+    """[..., P, 2] float (v, u) -> int64 pixel indices clipped into the
+    image.  The clamp comes before the cast: for every finite value that
+    equals casting first (truncation) and clipping after, and it keeps the
+    cast in range, where a float-to-integer cast is defined on both
+    devices.  Points that are not kept carry arbitrary (v, u); whatever
+    consumes the indices masks by keep."""
+    vi = vu[..., 0].clamp(0, H - 1).to(torch.int64)
+    ui = vu[..., 1].clamp(0, W - 1).to(torch.int64)
+    return vi, ui
+
+
+def _gather_at(img, vi, ui):
+    """Per-camera gather: img [..., C, H, W] at (vi, ui) [..., C, P] ->
+    [..., C, P]."""
+    W = img.shape[-1]
+    return torch.gather(img.flatten(-2), -1, vi * W + ui)
+
+
+def _point_count_raster(vi, ui, keep, H, W):
+    """Add kept points into a [..., C, H, W] f32 count raster (vi, ui, keep
+    [..., C, P]).  f32 is exact for any realistic count (< 2^24 points per
+    pixel), in any order; one index_add_ feeds every point-weighted metric
+    sum and (count > 0) the recall raster.  A point that is not kept adds
+    0.0 at its clipped pixel."""
+    lead = keep.shape[:-1]
+    n = int(np.prod(lead, dtype=np.int64))
+    base = torch.arange(n, dtype=torch.int64,
+                        device=keep.device).reshape(lead + (1,)) * (H * W)
+    idx = (base + vi * W + ui).reshape(-1)
+    buf = torch.zeros((n * H * W,), dtype=torch.float32, device=keep.device)
+    buf.index_add_(0, idx, keep.reshape(-1).to(torch.float32))
+    return buf.reshape(lead + (H, W))
+
+
+def frame_metrics_host(gt_mask, vu, keep, max_radius, tolerance,
+                       distance="chebyshev"):
+    """NumPy/SciPy mirror of frame_metrics, the evaluation host backend.
+
+    Same semantics as the tensor implementation: 'chebyshev' uses the exact
+    chessboard distance transform (scipy distance_transform_cdt == the
+    iterated 8-neighborhood dilation count, integer-exact) capped at
+    rounds=max(max_radius, tolerance+1); 'euclidean' uses the exact EDT.
+    Exists so evaluation runs with no torch device work at all
+    (MapEvaluator(backend='host')), and as the independent version the
+    tensor path is held against."""
+    from scipy import ndimage
+
+    gt_mask = np.asarray(gt_mask, bool)
+    C, H, W = gt_mask.shape
+    vi = np.clip(np.asarray(vu)[..., 0].astype(np.int32), 0, H - 1)
+    ui = np.clip(np.asarray(vu)[..., 1].astype(np.int32), 0, W - 1)
+    keep = np.asarray(keep, bool)
+    kf = keep.astype(np.float32)
+
+    # projected-point raster per camera (for recall)
+    pr = np.zeros((C, H, W), bool)
+    for c in range(C):
+        pr[c, vi[c][keep[c]], ui[c][keep[c]]] = True
+
+    if distance == "euclidean":
+        def dist_to(mask_c):  # float distance to nearest True, inf if none
+            if not mask_c.any():
+                return np.full((H, W), np.inf, np.float32)
+            return ndimage.distance_transform_edt(~mask_c).astype(np.float32)
+
+        sre_sum = n_hit = 0.0
+        gt_covered = 0.0
+        for c in range(C):
+            d = dist_to(gt_mask[c])
+            d_pts = d[vi[c], ui[c]]
+            sre_sum += float(np.sum(np.minimum(d_pts, float(max_radius)) * kf[c]))
+            n_hit += float(np.sum((d_pts <= float(tolerance)) * kf[c]))
+            dp = dist_to(pr[c])
+            gt_covered += float(np.sum(gt_mask[c] & (dp <= float(tolerance))))
+    else:
+        rounds = max(max_radius, tolerance + 1)
+
+        def cheb_to(mask_c, cap):  # capped chessboard distance to True
+            if not mask_c.any():
+                return np.full((H, W), cap, np.int32)
+            d = ndimage.distance_transform_cdt(~mask_c, metric="chessboard")
+            return np.minimum(d, cap).astype(np.int32)
+
+        sre_sum = n_hit = 0.0
+        gt_covered = 0.0
+        for c in range(C):
+            d = cheb_to(gt_mask[c], rounds)
+            d_pts = d[vi[c], ui[c]]
+            sre_sum += float(np.sum(np.minimum(d_pts, max_radius) * kf[c]))
+            n_hit += float(np.sum((d_pts <= tolerance) * kf[c]))
+            dp = cheb_to(pr[c], tolerance + 1)
+            gt_covered += float(np.sum(gt_mask[c] & (dp <= tolerance)))
+
+    return {
+        "sre_sum": sre_sum,
+        "n_points": float(kf.sum()),
+        "n_hit": n_hit,
+        "gt_total": float(gt_mask.sum()),
+        "gt_covered": gt_covered,
+    }
+
+
+def instance_votes_host(gt_ids, vu, keep, tolerance):
+    """Host mirror of instance_votes_chunk for one frame with the 'nearest'
+    assignment: [C, H, W] instance ids -> [C, P] vote ids (0 = no instance
+    within tolerance).  scipy's exact Euclidean feature transform
+    (return_indices) is the nearest-instance assignment; tie-breaking
+    between exactly equidistant instances may pick a different (still
+    deterministic) winner than the tensor path on the tie set itself.
+    Association is a majority vote per map instance, so aggregate metrics
+    agree."""
+    from scipy import ndimage
+
+    ids = np.asarray(gt_ids)
+    C, H, W = ids.shape
+    vi = np.clip(np.asarray(vu)[..., 0].astype(np.int32), 0, H - 1)
+    ui = np.clip(np.asarray(vu)[..., 1].astype(np.int32), 0, W - 1)
+    votes = np.zeros(vi.shape, np.int32)
+    for c in range(C):
+        if not (ids[c] > 0).any():
+            continue
+        d, (iy, ix) = ndimage.distance_transform_edt(
+            ids[c] == 0, return_indices=True)
+        vote_map = np.where(d <= float(tolerance), ids[c][iy, ix], 0)
+        votes[c] = vote_map[vi[c], ui[c]].astype(np.int32)
+    return votes
+
+
+# ---------------------------------------------------------------------------
+# instance-level association metrics (lane_ins ids, not just binary masks)
+# ---------------------------------------------------------------------------
+
+
+def _nearest_rows_id(ids):
+    """[..., H, W] int instance image -> (dist f32, id) of the nearest
+    nonzero pixel along axis -2 in the same column (dist at least 1e4 / id 0
+    where the column is empty).  Ties between the upper and lower neighbor
+    go to the upper one."""
+    H = ids.shape[-2]
+    above, below = _nearest_rows(ids > 0)
+    fd, bd = _rows_dist(above, below, H, _row_index(ids))
+    zero = torch.zeros((), dtype=ids.dtype, device=ids.device)
+    fi = torch.where(above >= 0,
+                     torch.gather(ids, -2, above.clamp(min=0).to(torch.int64)),
+                     zero)
+    bi = torch.where(below < H,
+                     torch.gather(ids, -2, below.clamp(max=H - 1).to(torch.int64)),
+                     zero)
+    take_f = fd <= bd
+    return torch.where(take_f, fd, bd), torch.where(take_f, fi, bi)
+
+
+def nearest_id_edt(ids, block=8):
+    """Exact Euclidean feature transform of an instance-id image:
+    ([..., H, W] int, 0 = background) -> (d2 [..., H, W] f32 squared distance
+    to the nearest labeled pixel, id [..., H, W] of that pixel).
+
+    Same separable construction as squared_edt, but the row-blocked min-plus
+    reduction takes an argmin and gathers the column pass's ids through it,
+    so every pixel knows which instance is nearest, not just how far.  Ties
+    resolve deterministically (smaller source column, because argmin returns
+    the first minimum; upper row within a column)."""
+    W = ids.shape[-1]
+    D0, I0 = _nearest_rows_id(ids)
+    flat_d = (D0 ** 2).reshape(-1, W)
+    flat_i = I0.reshape(-1, W)
+    d2 = _column_table(W, ids.device)
+    out_d = torch.empty_like(flat_d)
+    out_i = torch.empty_like(flat_i)
+    for s in range(0, flat_d.shape[0], block):
+        tot = flat_d[s:s + block, None, :] + d2[None]  # [b, W(out), W(src)]
+        src = torch.argmin(tot, dim=-1)
+        out_d[s:s + block] = torch.gather(tot, -1, src[..., None])[..., 0]
+        out_i[s:s + block] = torch.gather(flat_i[s:s + block], -1, src)
+    return out_d.reshape(ids.shape), out_i.reshape(ids.shape)
+
+
+def nearest_id_within(ids, radius):
+    """(d2, id) of the nearest labeled pixel, exact for every pixel whose
+    true distance is <= radius; farther pixels may carry overestimates.
+
+    Same column pass as nearest_id_edt, but the row reduction only scans
+    source columns within +-radius: any candidate with total d2 <= radius^2
+    necessarily has |dx| <= radius, so inside the tolerance mask the result
+    (including the smaller-source-column tie-break, enforced by strict-<
+    updates in ascending dx order) is that of the full transform.
+    O(H*W*radius) instead of the full EDT's O(H*W^2) row reduction."""
+    D0, I0 = _nearest_rows_id(ids)
+    D0 = D0 ** 2
+    best_d, best_i = None, None
+    for dx in range(-radius, radius + 1):
+        cand_d = _shift_cols(D0, dx, _EDT_INF ** 2) + float(dx * dx)
+        cand_i = _shift_cols(I0, dx, 0)
+        if best_d is None:
+            best_d, best_i = cand_d, cand_i
+        else:
+            take = cand_d < best_d  # strict: smaller source column wins ties
+            best_d = torch.where(take, cand_d, best_d)
+            best_i = torch.where(take, cand_i, best_i)
+    return best_d, best_i
+
+
+def dilate_ids(ids, rounds):
+    """Max-dilate an instance-id image (0 = background) with the same
+    8-neighborhood dilate3x3 uses, so instance voting and the binary
+    precision/recall metrics share one tolerance geometry (Chebyshev disc).
+    Where two instances are within 2*rounds px of each other the larger id
+    wins in the overlap; kept for the 'chebyshev' association mode."""
+    out = _wide(ids) if ids.dtype == torch.uint16 else ids
+    for _ in range(rounds):
+        h = out.clone()
+        h[..., :, 1:] = torch.maximum(h[..., :, 1:], out[..., :, :-1])
+        h[..., :, :-1] = torch.maximum(h[..., :, :-1], out[..., :, 1:])
+        out = h.clone()
+        out[..., 1:, :] = torch.maximum(out[..., 1:, :], h[..., :-1, :])
+        out[..., :-1, :] = torch.maximum(out[..., :-1, :], h[..., 1:, :])
+    return out.to(ids.dtype)
+
+
+def instance_votes_chunk(gt_ids, vu, keep, tolerance, assignment="nearest"):
+    """The tensor half of association voting, over a projection chunk: for
+    each projected point, the GT instance id it votes for (0 = no GT
+    instance within `tolerance` px).
+
+    gt_ids: [K, C, H, W] int (0 = background); vu/keep: [K, C, P, 2]/[K, C, P]
+    Returns [K, C, P] vote ids in gt_ids' dtype (votes are ids drawn from
+    gt_ids, so they fit it; the host filters by keep and row validity).
+    """
+    H, W = gt_ids.shape[-2], gt_ids.shape[-1]
+    vi, ui = _clip_pixels(vu, H, W)
+    gt_d = _vote_field(gt_ids, tolerance, assignment)
+    return _gather_at(_bits16(gt_d), vi, ui).view(gt_ids.dtype)
+
+
+def _metrics_and_votes_chunk(gt_ids, vu, keep, fv, max_radius, tolerance,
+                             distance, assignment):
+    """Chunk step of evaluate_scene_all: binary SRE/P/R partials and
+    instance votes from one upload of the GT ids."""
+    p = frame_metrics_chunk(_foreground(gt_ids), vu, keep, fv, max_radius,
+                            tolerance, distance)
+    votes = instance_votes_chunk(gt_ids, vu, keep, tolerance, assignment)
+    return p, votes
+
+
+# ---------------------------------------------------------------------------
+# resident-field evaluation: projection + metric sums per chunk, sampling
+# GT-derived distance/vote fields that are computed once and stay on the
+# device across evaluations
+# ---------------------------------------------------------------------------
+
+
+def _eval_core(points, valid, A, B, fvb, dist_field, gt_mask, vote_field,
+               width, height, lo, hi, k1, max_radius, tolerance, distance):
+    """Shared body of the evaluation chunk: project (crop-compacted to k1
+    when engaged), then sample the GT fields.  fvb [K] bool gates both the
+    projection's frame_valid and the metric row weights: a row is live only
+    when its frame is valid and its GT masks exist, exactly the rows the
+    chunked path weights by fv.
+
+    Returns (partials dict of 0-d tensors, votes [K, C, P'] or None,
+    keep [K, C, P'], sel [K, P'] int32 or None)."""
+    if k1 is not None:
+        vu, keep, sel = _project_compact_chunk_eval(
+            points, valid, A, B, fvb, width, height, lo, hi, k1)
+    else:
+        vu, keep = project_frames(points, valid, A, B, fvb, width, height,
+                                  lo, hi)
+        sel = None
+    rows = _frame_metrics_from_field(gt_mask, dist_field, vu, keep,
+                                     max_radius, tolerance, distance)
+    z = fvb.to(torch.float32)
+    partials = {k2: torch.sum(v * z) for k2, v in rows.items()}
+    votes = None
+    if vote_field is not None:
+        H, W = gt_mask.shape[-2], gt_mask.shape[-1]
+        vi, ui = _clip_pixels(vu, H, W)
+        votes = _gather_at(_bits16(vote_field), vi, ui).view(vote_field.dtype)
+    return partials, votes, keep, sel
+
+
+def _eval_chunk_build(points, valid, A, B, fvb, gt_ids, width, height, lo, hi,
+                      k1, max_radius, tolerance, distance, assignment,
+                      want_votes):
+    """First-visit chunk: derive the GT fields from the uploaded ids and
+    evaluate.  Returns the evaluation outputs plus the derived fields
+    (dist_field, the GT mask bitpacked, vote field or None), which the
+    caller retains as the resident cache."""
+    gt_mask = _foreground(gt_ids)
+    dist_fd = _dist_field(gt_mask, _dist_rounds(max_radius, tolerance,
+                                                distance), distance)
+    vote_fd = (_vote_field(gt_ids, tolerance, assignment)
+               if want_votes else None)
+    partials, votes, keep, sel = _eval_core(
+        points, valid, A, B, fvb, dist_fd, gt_mask, vote_fd,
+        width, height, lo, hi, k1, max_radius, tolerance, distance)
+    gtp = packbits(gt_mask)
+    return partials, votes, keep, sel, dist_fd, gtp, vote_fd
+
+
+def _eval_chunk_serve(points, valid, A, B, fvb, dist_field, gtp, vote_field,
+                      width, height, lo, hi, k1, max_radius, tolerance,
+                      distance):
+    """Steady-state chunk: the points, the frame matrices and the GT fields
+    already lie on the device, and nothing is uploaded."""
+    gt_mask = _unpack_bits(gtp, width)
+    return _eval_core(points, valid, A, B, fvb, dist_field, gt_mask,
+                      vote_field, width, height, lo, hi, k1, max_radius,
+                      tolerance, distance)
+
+
+def frame_instance_pairs(gt_ids, vu, keep, point_inst, tolerance,
+                         assignment="nearest", device="cuda"):
+    """Per-frame (map_instance_id, gt_instance_id) pairs for every kept
+    projected point: the raw material for association voting.
+
+    gt_ids: [C, H, W] integer GT instance image (0 = background)
+    vu/keep: [C, P, 2] / [C, P] projections;  point_inst: [P] map instance ids
+    assignment: 'nearest' (exact: each point votes for the Euclidean-nearest
+        GT instance within `tolerance` px) or 'chebyshev' (id max-dilation;
+        larger id wins where instances overlap).
+    Inputs are NumPy arrays; the work runs on `device`.
+    Returns (mi [N], gi [N]) numpy arrays (gi = 0 where no GT instance is
+    within tolerance).
+    """
+    keep_np = np.asarray(keep)
+    g_at = instance_votes_chunk(
+        _upload(np.asarray(gt_ids), device)[None],
+        _upload(np.asarray(vu, np.float32), device)[None],
+        _upload(keep_np, device)[None], tolerance, assignment)[0].cpu().numpy()
+    mi = np.broadcast_to(np.asarray(point_inst)[None, :], keep_np.shape)[keep_np]
+    return mi.astype(np.int64), g_at[keep_np].astype(np.int64)
+
+
+def instance_association(pairs_mi, pairs_gi, gt_ids_visible=None):
+    """Majority-vote association + quality metrics over accumulated pairs.
+
+    gt_ids_visible: optional set of GT instance ids actually present in the
+    (undilated) masks, the recall denominator.  Defaults to the ids seen in
+    the gathered votes (an underestimate of the denominator when a GT
+    instance's map twin was culled before projection).
+
+    Returns dict:
+      instance_precision: fraction of visible map instances whose majority
+        vote lands on a real GT instance (not background)
+      instance_recall: fraction of GT instance ids claimed by >=1 map
+        instance's majority vote
+      mean_purity: mean over map instances of (votes for the winner /
+        total votes), background included in the denominator
+      n_map_instances / n_gt_instances
+    """
+    mi = np.asarray(pairs_mi)
+    gi = np.asarray(pairs_gi)
+    if len(mi) == 0:
+        return {"instance_precision": 0.0, "instance_recall": 0.0,
+                "mean_purity": 0.0, "n_map_instances": 0, "n_gt_instances": 0}
+    gt_total = (set(gt_ids_visible) if gt_ids_visible is not None
+                else set(np.unique(gi[gi > 0]).tolist()))
+    matched_gt = set()
+    purities = []
+    n_matched = 0
+    for m in np.unique(mi):
+        votes = gi[mi == m]
+        ids, counts = np.unique(votes, return_counts=True)
+        # majority among non-background; ties resolve to the smaller id
+        fg = ids > 0
+        if fg.any():
+            k = np.argmax(counts[fg])
+            winner, wcount = int(ids[fg][k]), int(counts[fg][k])
+        else:
+            winner, wcount = 0, 0
+        purities.append(wcount / len(votes))
+        if winner > 0:
+            n_matched += 1
+            matched_gt.add(winner)
+    n_map = len(np.unique(mi))
+    return {
+        "instance_precision": n_matched / n_map if n_map else 0.0,
+        "instance_recall": len(matched_gt) / len(gt_total) if gt_total else 0.0,
+        "mean_purity": float(np.mean(purities)) if purities else 0.0,
+        "n_map_instances": n_map,
+        "n_gt_instances": len(gt_total),
+    }
+
+
+def reduce_metrics(partials):
+    """Sum per-frame partial dicts -> final metric dict."""
+    total = {}
+    for p in partials:
+        for k, v in p.items():
+            total[k] = total.get(k, 0.0) + float(v)
+    n_pts = total.get("n_points", 0.0)
+    gt_tot = total.get("gt_total", 0.0)
+    precision = total["n_hit"] / n_pts if n_pts else 0.0
+    recall = total["gt_covered"] / gt_tot if gt_tot else 0.0
+    f1 = 2 * precision * recall / (precision + recall) if precision + recall else 0.0
+    return {
+        "SRE": total.get("sre_sum", 0.0) / n_pts if n_pts else float("nan"),
+        "precision": precision,
+        "recall": recall,
+        "f1": f1,
+        "n_points": n_pts,
+        "gt_pixels": gt_tot,
+    }
+
+
+def _fetch_partials(partials):
+    """A list of partial dicts of tensors (0-d, or [R] per-row) -> the same
+    dicts of NumPy values, through one stack and one copy to the host."""
+    if not partials:
+        return []
+    stacked = torch.stack([torch.stack([p[k] for k in PARTIAL_KEYS])
+                           for p in partials]).cpu().numpy()
+    return [dict(zip(PARTIAL_KEYS, row)) for row in stacked]
+
+
+def _fetch_optional(tensors, on_card):
+    """pipeline._fetch_async over a tuple that may hold None entries:
+    (host tensors with None kept in place, event or None)."""
+    from cama_tpu_torch.pipeline import _fetch_async
+
+    present = [t for t in tensors if t is not None]
+    hosts, done = _fetch_async(present, on_card)
+    it = iter(hosts)
+    return tuple(None if t is None else next(it) for t in tensors), done
+
+
+class MapEvaluator:
+    """Scene-level SRE/precision/recall/F1 over reprojected map elements.
+    The device work runs on the evaluated pipeline's device."""
+
+    def __init__(self, tolerance=5, max_radius=20, distance="chebyshev",
+                 backend="device", compact="auto", resident="auto"):
+        import weakref
+
+        from cama_tpu_torch.profiling import PhaseTimers
+
+        self.tolerance = int(tolerance)
+        self.max_radius = int(max_radius)
+        self.distance = distance
+        if compact not in ("auto", "off"):
+            raise ValueError(f"unknown compact {compact!r}")
+        if resident not in ("auto", "off"):
+            raise ValueError(f"unknown resident {resident!r}")
+        # 'auto': full-scene device evaluations keep the GT-derived distance
+        # and vote fields on the device (keyed by the GT store's content
+        # key) and run the projection and the metric sums per chunk against
+        # them; the steady state uploads nothing.  Fields are pure functions
+        # of the cached GT masks and the caps, so results are identical.
+        # 'off' forces the per-evaluation upload and transform path.
+        self.resident = resident
+        # pipeline -> {"bytes": int, "chunks": {(source, s): entry}}; weak
+        # keys, so retired pipelines release their fields with them
+        self._resident_fields = weakref.WeakKeyDictionary()
+        # 'auto': when the scene's counting pass engaged the overlay path's
+        # crop-first two-stage split (pipeline.crop_compact_k: wide or
+        # long-range scenes where most points fall outside the per-frame
+        # crop), the device projections compact to the k1 crop survivors
+        # before the per-point metric work runs, cutting it P/k1-fold.  The
+        # kept-point set is unchanged (keep requires the crop box), so
+        # every metric is unchanged.  'off' forces full-P projections.
+        self.compact = compact
+        # per-phase wall-clock like the pipeline's: print
+        # evaluator.timers.report() after a run to see where an evaluation
+        # spent its time (GT load, dispatch, fetch)
+        self.timers = PhaseTimers()
+        if backend not in ("device", "host"):
+            raise ValueError(f"unknown backend {backend!r}")
+        # 'host': NumPy/SciPy projections and metrics (frame_metrics_host,
+        # instance_votes_host), with no tensor work.  Covers the full scene
+        # surface with the default 'nearest' assignment; the 'dilate'
+        # assignment stays device-only.
+        self.backend = backend
+
+    def _chunk_has_gt(self, pipeline, idxs):
+        """Any lane_ins PNG present for any (frame, camera) in this chunk:
+        the same existence gate instance_loader applies per mask."""
+        scene = pipeline.scene
+        for idx in idxs:
+            if idx is None:
+                continue
+            for cam in scene.camera_list:
+                ms = scene.sync_ms[cam][idx]
+                if os.path.exists(os.path.join(
+                        scene.clip_path, f"lane_ins_{cam}", f"{ms}.png")):
+                    return True
+        return False
+
+    def instance_loader(self, pipeline, camera, image_idx):
+        """Load and nearest-remap a `lane_ins_{camera}` instance-id PNG to
+        the output size (the undistort remap with INTER_NEAREST).  Returns
+        [H, W] int ids (0 = background) or None.  Served from the per-clip
+        GT mask store (pipeline.gt_mask_cache) after the first decode."""
+        import cv2
+
+        scene = pipeline.scene
+        ms = scene.sync_ms[camera][image_idx]
+        path = f"{scene.clip_path}/lane_ins_{camera}/{ms}.png"
+        if not os.path.exists(path):  # absent masks are routine (not every
+            return None               # clip ships GT)
+        c = scene.camera_list.index(camera)
+        cache = pipeline.gt_mask_cache()
+        if cache is not None:
+            cached = cache.get(image_idx, c)
+            if cached is not None:
+                return cached  # read-only mmap view; callers copy into stacks
+        raw = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
+        if raw is None:
+            return None
+        h, w = scene.output_size
+        mapx, mapy = pipeline.remaps.get(
+            camera, scene.K_orig[c], scene.d[c], scene.K_scaled[c], (h, w)
+        )
+        ids = cv2.remap(raw, mapx, mapy, interpolation=cv2.INTER_NEAREST)
+        if cache is not None:
+            # own=True: the freshly remapped ids are never mutated (metric
+            # consumers stack/copy); skips the store's defensive copy
+            cache.put(image_idx, c, ids.astype(np.uint16, copy=False),
+                      own=True)
+        return ids
+
+    def mask_loader(self, pipeline, camera, image_idx):
+        """Binary-mask view of instance_loader. Returns [H, W] bool or None."""
+        ids = self.instance_loader(pipeline, camera, image_idx)
+        return None if ids is None else ids > 0
+
+    def _iter_chunk_projections(self, pipeline, source, frames):
+        """Chunked projection shared by every scene-level metric: yields
+        (image_idxs, vu [K, C, P', 2], keep [K, C, P'], sel) per chunk,
+        where image_idxs[kk] is the frame index for chunk row kk, or None
+        for rows that are invalid frames / not in the requested `frames`
+        set.  Memory stays bounded at pipeline.chunk frames.  The device
+        backend yields tensors on the pipeline's device, the host backend
+        NumPy arrays.
+
+        P' is the full point axis P with sel=None, or, when compact='auto'
+        engaged the crop-first compaction (_project_compact_chunk_eval),
+        the k1 crop-survivor count with sel a [K, k1] int32 gather index
+        into the original point axis (padding rows carry keep False).  The
+        kept-point set is identical either way."""
+        from cama_tpu_torch.pipeline import (
+            _host_project_chunk,
+            _host_project_compact_chunk,
+        )
+
+        fm, A, B, fv, F = pipeline._chunked_AB(source)
+        k1 = None
+        if self.backend == "device":
+            st = pipeline.scene_tensors(source)
+            if self.compact == "auto":
+                k1 = pipeline.crop_compact_k(source)
+        h, w = pipeline.scene.output_size
+        lo, hi = pipeline._crop_lo, pipeline._crop_hi
+        pending = None if frames is None else set(frames)
+        for s in range(0, len(fv), pipeline.chunk):
+            if pending is not None and not pending:
+                return  # all requested frames served
+            sl = slice(s, s + pipeline.chunk)
+            idxs = []
+            for k in range(s, min(s + pipeline.chunk, len(fv))):
+                if k >= F or not fm.frame_valid[k]:
+                    idxs.append(None)
+                    continue
+                image_idx = int(fm.frame_indices[k])
+                if frames is not None and image_idx not in frames:
+                    idxs.append(None)
+                    continue
+                idxs.append(image_idx)
+            if pending is not None:
+                # skip whole chunks with no requested frame before paying
+                # the projection for them (quick-look reports on long clips)
+                if not any(i is not None for i in idxs):
+                    continue
+                pending.difference_update(i for i in idxs if i is not None)
+            if self.backend == "host":
+                # skip GT-less chunks before the synchronous f64 projection:
+                # absent masks are routine, and this einsum is real blocking
+                # host work whose output _chunk_gt would discard
+                if not self._chunk_has_gt(pipeline, idxs):
+                    continue
+                fp = pipeline.scene.flat[source]
+                with self.timers.phase("eval_host"):
+                    if self.compact == "auto":
+                        # unconditional on host: padding is local to the
+                        # chunk, and wide scenes cut the f64 per-point work
+                        # by the crop ratio
+                        vu_c, keep_c, sel_c = _host_project_compact_chunk(
+                            fp.points, fp.valid, A[sl], B[sl], fv[sl], w, h,
+                            lo, hi)
+                    else:
+                        vu_c, keep_c = _host_project_chunk(
+                            fp.points, fp.valid, A[sl], B[sl], fv[sl], w, h,
+                            lo, hi)
+                        sel_c = None
+            elif k1 is not None:
+                vu_c, keep_c, sel_c = _project_compact_chunk_eval(
+                    st.points, st.valid, st.A[sl], st.B[sl],
+                    st.frame_valid[sl], w, h, lo, hi, k1)
+            else:
+                vu_c, keep_c = project_frames(
+                    st.points, st.valid, st.A[sl], st.B[sl],
+                    st.frame_valid[sl], w, h, lo, hi)
+                sel_c = None
+            idxs += [None] * (vu_c.shape[0] - len(idxs))
+            yield idxs, vu_c, keep_c, sel_c
+
+    def _iter_frame_projections(self, pipeline, source, frames):
+        """Per-frame adapter over _iter_chunk_projections: yields
+        (image_idx, vu [C, P', 2], keep [C, P']) for each valid frame (P'
+        may be the compacted k1 axis; kept-point set identical)."""
+        for idxs, vu_c, keep_c, _sel in self._iter_chunk_projections(
+                pipeline, source, frames):
+            for kk, image_idx in enumerate(idxs):
+                if image_idx is not None:
+                    yield image_idx, vu_c[kk], keep_c[kk]
+
+    def _load_all_cameras(self, pipeline, image_idx):
+        """Instance-id images for every camera, or None if any is missing."""
+        ids = []
+        for camera in pipeline.scene.camera_list:
+            m = self.instance_loader(pipeline, camera, image_idx)
+            if m is None:
+                return None
+            ids.append(m)
+        return np.stack(ids)
+
+    def _chunk_gt(self, pipeline, idxs):
+        """GT instance-id stacks for one projection chunk.
+
+        Returns (ids_b [K, C, H, W] uint16, zeros for rows without GT;
+        fv [K] float32 row validity; evaluated (row, frame index) list), or
+        (None, None, []) when no row in the chunk has GT masks (the chunk's
+        metric work is skipped entirely).  uint16 holds any id cv2 can read
+        from a lane_ins PNG (8- or 16-bit)."""
+        ids_b = None
+        fv = np.zeros((len(idxs),), np.float32)
+        evaluated = []
+        for kk, image_idx in enumerate(idxs):
+            if image_idx is None:
+                continue
+            ids = self._load_all_cameras(pipeline, image_idx)
+            if ids is None:
+                continue
+            if ids_b is None:
+                ids_b = np.zeros((len(idxs),) + ids.shape, np.uint16)
+            ids_b[kk] = ids
+            fv[kk] = 1.0
+            evaluated.append((kk, image_idx))
+        return ids_b, fv, evaluated
+
+    # resident-field device memory budget per evaluator: beyond it, later
+    # chunks still run the build step but their fields are not retained
+    # (the default keeps long scenes from crowding out the overlay
+    # pipeline)
+    RESIDENT_BUDGET_MB = float(os.environ.get("CAMA_EVAL_RESIDENT_MB", 2048))
+
+    def _chunk_layout(self, pipeline, source):
+        """Chunk row layout for a full-scene pass: yields (s, idxs) where
+        idxs[kk] is the frame index for row kk or None (invalid frame /
+        padding), the same layout _iter_chunk_projections derives."""
+        fm, A, B, fv, F = pipeline._chunked_AB(source)
+        for s in range(0, len(fv), pipeline.chunk):
+            idxs = []
+            for k in range(s, min(s + pipeline.chunk, len(fv))):
+                if k >= F or not fm.frame_valid[k]:
+                    idxs.append(None)
+                else:
+                    idxs.append(int(fm.frame_indices[k]))
+            yield s, idxs
+
+    def _eval_scene_resident(self, pipeline, source, frames, instances,
+                             assignment):
+        """Resident-field evaluation (the device steady state).
+
+        Per chunk, the scene points are projected and GT-derived fields
+        that live on the device are sampled: a capped distance field (uint8
+        chebyshev count / f32 squared-EDT) for SRE and precision, the
+        bitpacked GT mask for recall, and, when instances are requested,
+        the per-pixel nearest-instance vote field.  The fields are pure
+        functions of the cached GT masks and the evaluator's caps, built
+        once per (pipeline, chunk) by _eval_chunk_build and keyed by the GT
+        store's content key, so regenerated masks invalidate them exactly
+        when they invalidate the store.  A warm evaluation therefore
+        uploads nothing and runs no distance transform of the GT.
+
+        Returns the result dict, or None when the path doesn't apply
+        (host backend, frames filter, resident='off', or no GT store to key
+        staleness by)."""
+        if (self.backend != "device" or frames is not None
+                or self.resident == "off"):
+            return None
+        cache = pipeline.gt_mask_cache()
+        if cache is None:
+            return None  # no content key to detect regenerated masks by
+        gt_key = cache.key
+        st = pipeline.scene_tensors(source)
+        device = pipeline.device
+        k1 = (pipeline.crop_compact_k(source) if self.compact == "auto"
+              else None)
+        h, w = pipeline.scene.output_size
+        lo, hi = pipeline._crop_lo, pipeline._crop_hi
+        store = self._resident_fields.get(pipeline)
+        if store is None:
+            store = self._resident_fields[pipeline] = {"bytes": 0,
+                                                       "chunks": {}}
+        budget = int(self.RESIDENT_BUDGET_MB * 1e6)
+
+        partials, pending = [], []
+        sink = {"mi": [], "gi": []}
+        visible = set()
+        n_evaluated = 0
+        for s, idxs in self._chunk_layout(pipeline, source):
+            key = (source, s)
+            entry = store["chunks"].get(key)
+            if entry is not None and entry["gt_key"] != gt_key:
+                if not entry.get("empty"):
+                    store["bytes"] -= entry["bytes"]
+                entry = None  # masks regenerated: rebuild
+            if (entry is not None and not entry.get("empty") and instances
+                    and assignment not in entry["votes"]):
+                store["bytes"] -= entry["bytes"]
+                entry = None  # upgrade: rebuild with the vote field
+            if entry is not None and entry.get("empty"):
+                continue
+            sl = slice(s, s + pipeline.chunk)
+            if entry is None:
+                with self.timers.phase("eval_gt_load"):
+                    ids_b, fvv, evaluated = self._chunk_gt(pipeline, idxs)
+                if ids_b is None:
+                    store["chunks"][key] = {"gt_key": gt_key, "empty": True}
+                    continue
+                vis = (np.unique(ids_b[ids_b > 0]) if instances
+                       else np.empty(0, np.int64))
+                with self.timers.phase("eval_dispatch"):
+                    fvb = _upload(fvv > 0, device)
+                    p, votes, keep, sel, dist_fd, gtp, vote_fd = \
+                        _eval_chunk_build(
+                            st.points, st.valid, st.A[sl], st.B[sl], fvb,
+                            device_ids(ids_b, device), w, h, lo, hi, k1,
+                            self.max_radius, self.tolerance, self.distance,
+                            assignment, instances)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in (dist_fd, gtp, vote_fd)
+                             if t is not None)
+                if store["bytes"] + nbytes <= budget:
+                    entry = {
+                        "gt_key": gt_key, "fvb": fvb, "evaluated": evaluated,
+                        "visible": vis, "bytes": nbytes,
+                        "dist": dist_fd, "gtp": gtp,
+                        "votes": {assignment: vote_fd} if instances else {},
+                    }
+                    store["chunks"][key] = entry
+                    store["bytes"] += nbytes
+                else:
+                    store["chunks"].pop(key, None)  # over budget: don't keep
+            else:
+                evaluated, vis = entry["evaluated"], entry["visible"]
+                with self.timers.phase("eval_dispatch"):
+                    p, votes, keep, sel = _eval_chunk_serve(
+                        st.points, st.valid, st.A[sl], st.B[sl],
+                        entry["fvb"], entry["dist"], entry["gtp"],
+                        entry["votes"].get(assignment) if instances else None,
+                        w, h, lo, hi, k1, self.max_radius, self.tolerance,
+                        self.distance)
+            partials.append(p)
+            n_evaluated += len(evaluated)
+            if instances:
+                visible.update(int(i) for i in vis)
+                self._push_votes(pipeline, source, pending, sink,
+                                 (votes, keep, sel, evaluated))
+        self._drain_votes(pipeline, source, pending, sink)
+        with self.timers.phase("eval_fetch"):
+            out = reduce_metrics(_fetch_partials(partials))
+        if instances:
+            assoc = self._associate(sink, visible)
+            out.update(assoc if assoc is not None else self._EMPTY_ASSOCIATION)
+        out["frames_evaluated"] = n_evaluated
+        return out
+
+    def evaluate_scene(self, pipeline, source="cama", frames=None):
+        """Run the metric over all valid frames that have GT masks.
+
+        Projection and metrics run chunk by chunk (pipeline.chunk frames at
+        a time) so memory stays bounded for long scenes; chunk partials are
+        plain sums, fetched once after the last chunk is queued, so the
+        host's GT loading overlaps the device's work."""
+        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        r = self._eval_scene_resident(pipeline, source, frames,
+                                      instances=False, assignment="nearest")
+        if r is not None:
+            return r
+        device = pipeline.device
+        partials = []
+        n_evaluated = 0
+        for idxs, vu_c, keep_c, _sel in self._iter_chunk_projections(
+                pipeline, source, frames):
+            with self.timers.phase("eval_gt_load"):
+                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
+            if ids_b is None:
+                continue
+            if self.backend == "host":
+                with self.timers.phase("eval_host"):
+                    self._host_fold_metrics(partials, ids_b, vu_c, keep_c,
+                                            evaluated)
+            else:
+                with self.timers.phase("eval_dispatch"):
+                    partials.append(frame_metrics_chunk_packed(
+                        _upload(np.packbits(ids_b > 0, axis=-1), device),
+                        vu_c, keep_c, _upload(fv, device), ids_b.shape[-1],
+                        self.max_radius, self.tolerance, self.distance,
+                    ))
+            n_evaluated += len(evaluated)
+        with self.timers.phase("eval_host" if self.backend == "host"
+                               else "eval_fetch"):
+            out = reduce_metrics(partials if self.backend == "host"
+                                 else _fetch_partials(partials))
+        out["frames_evaluated"] = n_evaluated
+        return out
+
+    # device-vote backlog bound (chunks): enough in flight to overlap host GT
+    # loading with device work, small enough that vote buffers stay O(1) in
+    # scene length (a [K, C, P] uint16 + bool pair per chunk can be tens of
+    # MB at production point counts)
+    MAX_PENDING_CHUNKS = 4
+
+    def _drain_votes(self, pipeline, source, pending, sink):
+        """Fetch the queued chunks' device votes and keep masks in one wave
+        of pinned copies, filter per evaluated row, fold into
+        sink['mi'/'gi'].  pending: list of (votes [K, C, P'], keep
+        [K, C, P'], sel [K, P'] or None, evaluated); with a compacted
+        projection, sel maps each row's point axis back to scene-flat
+        instance ids."""
+        if not pending:
+            return
+        point_inst = np.asarray(pipeline.scene.flat[source].inst)
+        with self.timers.phase("eval_fetch"):
+            hosts, done = _fetch_optional(
+                [t for v, k, s, _ in pending for t in (v, k, s)],
+                pipeline.device.type == "cuda")
+            if done is not None:
+                done.synchronize()
+            fetched = [None if t is None else t.numpy() for t in hosts]
+        for i, (_, _, _, evaluated) in enumerate(pending):
+            g_at, keep_np, sel_np = fetched[3 * i:3 * i + 3]
+            for kk, _image_idx in evaluated:
+                k_row = keep_np[kk]
+                inst_row = (point_inst if sel_np is None
+                            else point_inst[sel_np[kk]])
+                mi = np.broadcast_to(inst_row[None, :], k_row.shape)[k_row]
+                sink["mi"].append(mi.astype(np.int64))
+                sink["gi"].append(g_at[kk][k_row].astype(np.int64))
+        pending.clear()
+
+    def _push_votes(self, pipeline, source, pending, sink, item):
+        """Queue one chunk's device votes, draining when the backlog bound
+        is hit (keeps the device busy without unbounded buffers)."""
+        pending.append(item)
+        if len(pending) >= self.MAX_PENDING_CHUNKS:
+            self._drain_votes(pipeline, source, pending, sink)
+
+    @staticmethod
+    def _associate(sink, visible):
+        if not sink["mi"]:
+            return None
+        return instance_association(np.concatenate(sink["mi"]),
+                                    np.concatenate(sink["gi"]),
+                                    gt_ids_visible=visible)
+
+    _EMPTY_ASSOCIATION = {"instance_precision": 0.0, "instance_recall": 0.0,
+                          "mean_purity": 0.0, "n_map_instances": 0,
+                          "n_gt_instances": 0}
+
+    def _check_assignment(self, assignment):
+        """Validate at method entry: inside the loop it would only fire when
+        a GT-bearing chunk exists, and an unsupported assignment on a
+        GT-less clip would return empty results silently."""
+        if self.backend == "host" and assignment != "nearest":
+            raise ValueError("backend='host' supports assignment='nearest'")
+
+    def _host_fold_metrics(self, partials, ids_b, vu_c, keep_c, evaluated):
+        """Host-backend per-row metric fold shared by evaluate_scene and
+        evaluate_scene_all."""
+        for kk, _image_idx in evaluated:
+            partials.append(frame_metrics_host(
+                ids_b[kk] > 0, vu_c[kk], keep_c[kk],
+                self.max_radius, self.tolerance, self.distance))
+
+    def _host_fold_votes(self, pipeline, source, sink, ids_b, vu_c, keep_c,
+                         evaluated, sel_c=None):
+        """Host-backend voting for one chunk's evaluated rows, folded
+        straight into the association sink.  sel_c maps a compacted chunk's
+        point axis back to scene-flat instance ids (None for full-P
+        projections)."""
+        point_inst = np.asarray(pipeline.scene.flat[source].inst)
+        for kk, _image_idx in evaluated:
+            votes_row = instance_votes_host(ids_b[kk], vu_c[kk], keep_c[kk],
+                                            self.tolerance)
+            k_row = np.asarray(keep_c[kk], bool)
+            inst = (point_inst if sel_c is None
+                    else point_inst[np.asarray(sel_c[kk])])
+            mi = np.broadcast_to(inst[None, :], k_row.shape)[k_row]
+            sink["mi"].append(mi.astype(np.int64))
+            sink["gi"].append(votes_row[k_row].astype(np.int64))
+
+    def evaluate_scene_instances(self, pipeline, source="cama", frames=None,
+                                 assignment="nearest"):
+        """Instance-level association quality over all valid frames with GT
+        instance masks: each map instance's projected points vote on a GT
+        instance id (for the Euclidean-nearest instance within tolerance by
+        default, see instance_votes_chunk); reports precision/recall/purity
+        (see instance_association).  Votes are fetched in batched transfers
+        every MAX_PENDING_CHUNKS chunks."""
+        self._check_assignment(assignment)
+        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        device = pipeline.device
+        pending = []
+        sink = {"mi": [], "gi": []}
+        visible = set()
+        n_evaluated = 0
+        for idxs, vu_c, keep_c, sel_c in self._iter_chunk_projections(
+                pipeline, source, frames):
+            with self.timers.phase("eval_gt_load"):
+                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
+            if ids_b is None:
+                continue
+            if self.backend == "host":
+                with self.timers.phase("eval_host"):
+                    self._host_fold_votes(pipeline, source, sink, ids_b,
+                                          vu_c, keep_c, evaluated, sel_c)
+            else:
+                with self.timers.phase("eval_dispatch"):
+                    votes = instance_votes_chunk(
+                        device_ids(ids_b, device), vu_c, keep_c,
+                        self.tolerance, assignment)
+                    self._push_votes(pipeline, source, pending, sink,
+                                     (votes, keep_c, sel_c, evaluated))
+            visible.update(np.unique(ids_b[ids_b > 0]).tolist())
+            n_evaluated += len(evaluated)
+        self._drain_votes(pipeline, source, pending, sink)
+        out = self._associate(sink, visible)
+        if out is None:
+            return dict(self._EMPTY_ASSOCIATION, frames_evaluated=0)
+        out["frames_evaluated"] = n_evaluated
+        return out
+
+    def evaluate_scene_all(self, pipeline, source="cama", frames=None,
+                           assignment="nearest"):
+        """Scene metrics and instance association in one pass: the GT
+        instance PNGs are read and remapped once, the projections run once
+        per chunk, and both metric families share one upload of the ids
+        (_metrics_and_votes_chunk).  Vote buffers come back in bounded
+        batched transfers (MAX_PENDING_CHUNKS), scalar partials in one
+        trailing copy.  The result dict is the union of the two
+        single-metric methods' outputs."""
+        self._check_assignment(assignment)
+        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        r = self._eval_scene_resident(pipeline, source, frames,
+                                      instances=True, assignment=assignment)
+        if r is not None:
+            return r
+        device = pipeline.device
+        partials, pending = [], []
+        sink = {"mi": [], "gi": []}
+        visible = set()
+        n_evaluated = 0
+        for idxs, vu_c, keep_c, sel_c in self._iter_chunk_projections(
+                pipeline, source, frames):
+            with self.timers.phase("eval_gt_load"):
+                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
+            if ids_b is None:
+                continue
+            if self.backend == "host":
+                with self.timers.phase("eval_host"):
+                    self._host_fold_metrics(partials, ids_b, vu_c, keep_c,
+                                            evaluated)
+                    self._host_fold_votes(pipeline, source, sink, ids_b,
+                                          vu_c, keep_c, evaluated, sel_c)
+            else:
+                with self.timers.phase("eval_dispatch"):
+                    p, votes = _metrics_and_votes_chunk(
+                        device_ids(ids_b, device), vu_c, keep_c,
+                        _upload(fv, device), self.max_radius, self.tolerance,
+                        self.distance, assignment,
+                    )
+                    partials.append(p)
+                    self._push_votes(pipeline, source, pending, sink,
+                                     (votes, keep_c, sel_c, evaluated))
+            visible.update(np.unique(ids_b[ids_b > 0]).tolist())
+            n_evaluated += len(evaluated)
+        self._drain_votes(pipeline, source, pending, sink)
+        with self.timers.phase("eval_host" if self.backend == "host"
+                               else "eval_fetch"):
+            out = reduce_metrics(partials if self.backend == "host"
+                                 else _fetch_partials(partials))
+        assoc = self._associate(sink, visible)
+        out.update(assoc if assoc is not None else self._EMPTY_ASSOCIATION)
+        out["frames_evaluated"] = n_evaluated
+        return out
+
+    def evaluate_scene_batch(self, pipelines, source="cama", instances=False,
+                             assignment="nearest"):
+        """Fleet evaluation: every scene's metric work batched into one wave
+        per chunk, riding MultiScenePipeline's stacked frame matrices
+        (scenes pad to a common (P, F); the batching the CLI uses for
+        overlay videos).  Per-scene results come from per-row partials
+        grouped on the host, so each scene still gets its own metric dict.
+
+        pipelines: list of ClipPipeline (same output size, lane and device)
+            or a MultiScenePipeline.
+        instances: also run association voting per scene.
+        Returns: list aligned with the input pipelines: a result dict per
+        scene, or None for scenes that lack the source or have no GT.
+        """
+        from cama_tpu_torch.pipeline import MultiScenePipeline
+
+        if self.backend == "host":
+            # the fleet path exists to batch device work; the host backend
+            # has none, so route per scene through the host evaluators
+            # (same full surface)
+            pipes_list = (pipelines.pipelines
+                          if isinstance(pipelines, MultiScenePipeline)
+                          else list(pipelines))
+            if not any(source in p.scene.flat for p in pipes_list):
+                # same failure mode as the device route (which raises via
+                # MultiScenePipeline._stacked), not a silent all-None list
+                raise ValueError(f"no member scene carries source {source!r}")
+            results = []
+            for p in pipes_list:
+                if source not in p.scene.flat:
+                    results.append(None)
+                    continue
+                r = (self.evaluate_scene_all(p, source, assignment=assignment)
+                     if instances else self.evaluate_scene(p, source))
+                results.append(r if r.get("frames_evaluated") else None)
+            return results
+
+        msp = (pipelines if isinstance(pipelines, MultiScenePipeline)
+               else MultiScenePipeline(pipelines, source=source))
+        # _stacked, not _source_state: the latter also runs the overlay
+        # counting pass per member, which the metric path never uses
+        members = msp.members(source)
+        fms, Fs, A, B, fv = msp._stacked(source)
+        pipes = [msp.pipelines[i] for i in members]
+        device = msp.device
+        on_card = device.type == "cuda"
+        for p in pipes:
+            p.refresh_gt_cache()  # pick up regenerated GT masks
+        # the members' points, padded to a common P with invalid points
+        tens = [p.scene_tensors(source) for p in pipes]
+        P = max(int(t.points.shape[0]) for t in tens)
+        pts = torch.stack([torch.nn.functional.pad(
+            t.points, (0, 0, 0, P - t.points.shape[0])) for t in tens])
+        valid = torch.stack([torch.nn.functional.pad(
+            t.valid, (0, P - t.valid.shape[0])) for t in tens])
+        h, w = pipes[0].scene.output_size
+        lo, hi = pipes[0]._crop_lo, pipes[0]._crop_hi
+        S = len(pipes)
+        K = msp.chunk
+        Fp = int(fv.shape[1])
+        inst_pad = [np.pad(np.asarray(p.scene.flat[source].inst),
+                           (0, P - len(p.scene.flat[source].inst)))
+                    for p in pipes] if instances else None
+        # fleet-wide two-stage: compact to the members' largest
+        # crop-survivor sizing when every member's counting pass engaged the
+        # split (mixed or unsized fleets stay full-P), the same
+        # already-known-only rule as the solo path (pipeline.crop_compact_k
+        # never runs the counting pass)
+        k1 = None
+        if self.compact == "auto":
+            ks = [p.crop_compact_k(source) for p in pipes]
+            if ks and all(k is not None for k in ks):
+                k1 = max(ks)
+                if k1 * 2 > P:
+                    k1 = None
+
+        sums = [dict() for _ in range(S)]
+        counts = [0] * S
+        sinks = [{"mi": [], "gi": []} for _ in range(S)]
+        visible = [set() for _ in range(S)]
+        pending = []  # (rows [5, R], votes|None, keep_p|None, cidx|None,
+        #                p_dim, slots)
+
+        def drain():
+            if not pending:
+                return
+            with self.timers.phase("eval_fetch"):
+                hosts, done = _fetch_optional(
+                    [t for item in pending for t in item[:4]], on_card)
+                if done is not None:
+                    done.synchronize()
+                hosts = [None if t is None else t.numpy() for t in hosts]
+            for i, item in enumerate(pending):
+                rows, votes, keep_p, cidx = hosts[4 * i:4 * i + 4]
+                p_dim, slots = item[4], item[5]
+                keep_np = (None if keep_p is None else
+                           np.unpackbits(keep_p, axis=-1)[..., :p_dim]
+                           .astype(bool))
+                for r, (mi_s, kk) in enumerate(slots):
+                    for k2, v in zip(PARTIAL_KEYS, rows):
+                        sums[mi_s][k2] = sums[mi_s].get(k2, 0.0) + float(v[r])
+                    counts[mi_s] += 1
+                    if votes is not None:
+                        k_row = keep_np[r]
+                        m = inst_pad[mi_s]
+                        if cidx is not None:  # compacted: map back through
+                            m = m[cidx[r]]    # the row's selection indices
+                        sinks[mi_s]["mi"].append(np.broadcast_to(
+                            m[None, :], k_row.shape)[k_row].astype(np.int64))
+                        sinks[mi_s]["gi"].append(
+                            votes[r][k_row].astype(np.int64))
+            pending.clear()
+
+        for s in range(0, Fp, K):
+            sl = slice(s, s + K)
+            with self.timers.phase("eval_dispatch"):
+                if k1 is not None:
+                    vu, keep, cidx_c = _project_compact_scenes(
+                        pts, valid, A[:, sl], B[:, sl], fv[:, sl],
+                        w, h, lo, hi, k1)
+                else:
+                    vu, keep = _project_scenes(
+                        pts, valid, A[:, sl], B[:, sl], fv[:, sl],
+                        w, h, lo, hi)
+                    cidx_c = None
+            # rows with complete GT, across all scenes of this chunk
+            gt_rows, slots = [], []
+            with self.timers.phase("eval_gt_load"):
+                for mi_s, (fm, F) in enumerate(zip(fms, Fs)):
+                    for kk in range(min(K, Fp - s)):
+                        fidx = s + kk
+                        if fidx >= F or not fm.frame_valid[fidx]:
+                            continue
+                        ids = self._load_all_cameras(
+                            pipes[mi_s], int(fm.frame_indices[fidx]))
+                        if ids is None:
+                            continue
+                        gt_rows.append(np.asarray(ids, np.uint16))
+                        slots.append((mi_s, kk))
+            if not gt_rows:
+                continue
+            # pad the row batch to a multiple of the chunk
+            pad = (-len(gt_rows)) % K
+            ids_b = np.stack(gt_rows + [np.zeros_like(gt_rows[0])] * pad)
+            sel = np.asarray([mi_s * vu.shape[1] + kk for mi_s, kk in slots]
+                             + [0] * pad, np.int64)
+            with self.timers.phase("eval_dispatch"):
+                sel_d = _upload(sel, device)
+                vu_f = vu.flatten(0, 1)[sel_d]
+                keep_f = keep.flatten(0, 1)[sel_d]
+                rows = frame_metrics_rows_packed(
+                    _upload(np.packbits(ids_b > 0, axis=-1), device), vu_f,
+                    keep_f, w, self.max_radius, self.tolerance, self.distance)
+                rows = torch.stack([rows[k2] for k2 in PARTIAL_KEYS])
+                votes = keep_p = cidx_f = None
+                if instances:
+                    votes = instance_votes_chunk(
+                        device_ids(ids_b, device), vu_f, keep_f,
+                        self.tolerance, assignment)
+                    # keep goes to the host bitpacked (an eighth of the
+                    # bytes); skipped when only the partials are needed
+                    keep_p = packbits(keep_f)
+                    if cidx_c is not None:  # per-row selection indices for
+                        cidx_f = cidx_c.flatten(0, 1)[sel_d]  # the inst map
+            if instances:
+                for (mi_s, _kk), ids in zip(slots, gt_rows):
+                    visible[mi_s].update(np.unique(ids[ids > 0]).tolist())
+            pending.append((rows, votes, keep_p, cidx_f,
+                            int(keep_f.shape[-1]), slots))
+            if len(pending) >= self.MAX_PENDING_CHUNKS:
+                drain()
+        drain()
+
+        results = [None] * len(msp.pipelines)
+        for mi_s, gi in enumerate(members):
+            if counts[mi_s] == 0:
+                continue
+            out = reduce_metrics([sums[mi_s]])
+            if instances:
+                assoc = self._associate(sinks[mi_s], visible[mi_s])
+                out.update(assoc if assoc is not None
+                           else self._EMPTY_ASSOCIATION)
+            out["frames_evaluated"] = counts[mi_s]
+            results[gi] = out
+        return results
+
+    def evaluate_scene_batch_sharded(self, pipelines, mesh, source="cama"):
+        """Fleet evaluation with the scene batch sharded over several
+        devices.  Not part of this package yet: it needs the sharded
+        programs of cama_tpu/parallel/sharding.py
+        (sharded_scene_batch_metrics), which ROADMAP.md lists as item 11.
+        evaluate_scene_batch gives the same per-scene results on one
+        device."""
+        raise NotImplementedError(
+            "evaluate_scene_batch_sharded waits for the port of "
+            "parallel/sharding.py (ROADMAP.md item 11); use "
+            "evaluate_scene_batch")
+
+
+def main(argv=None):
+    """Map-quality evaluation script: SRE, precision, recall, F1-score, and
+    with --instances the association metrics, as one JSON line."""
+    import argparse
+    import json
+    import math
+
+    from cama_tpu_torch.pipeline import ClipPipeline
+
+    parser = argparse.ArgumentParser(description="SRE / precision / recall / F1 map evaluation")
+    parser.add_argument("--clip", required=True, help="clip directory")
+    parser.add_argument("--source", default="cama", choices=["cama", "nuscenes"])
+    parser.add_argument("--tolerance", type=int, default=5, help="hit radius (px)")
+    parser.add_argument("--max-radius", type=int, default=20, help="SRE distance cap (px)")
+    parser.add_argument("--distance", default="chebyshev",
+                        choices=["chebyshev", "euclidean"],
+                        help="point->mask metric: chebyshev (dilation rounds, "
+                             "cheapest) or euclidean (exact EDT)")
+    parser.add_argument("--instances", action="store_true",
+                        help="also report instance-level association metrics")
+    parser.add_argument("--backend", default="device",
+                        choices=["device", "host"],
+                        help="'host' = NumPy/SciPy evaluation (no tensor "
+                             "work); full surface incl. --instances with "
+                             "the default 'nearest' assignment")
+    parser.add_argument("--compact", default="auto",
+                        choices=["auto", "off"],
+                        help="'auto' (default) bounds per-point metric work "
+                             "to the per-frame crop survivors on long-range "
+                             "scenes (metrics identical); 'off' forces "
+                             "full-P projections")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: 'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+
+    pipe = ClipPipeline(clip_path=args.clip, device=args.device)
+    ev = MapEvaluator(tolerance=args.tolerance, max_radius=args.max_radius,
+                      distance=args.distance, backend=args.backend,
+                      compact=args.compact)
+    if args.instances:  # one pass computes both metric families
+        result = ev.evaluate_scene_all(pipe, args.source)
+    else:
+        result = ev.evaluate_scene(pipe, args.source)
+    # NaN (no frames/points evaluated) must serialize as null: bare NaN
+    # tokens are not valid JSON and break strict consumers
+    print(json.dumps({
+        k: (None if isinstance(v, float) and not math.isfinite(v)
+            else round(v, 4) if isinstance(v, float) else v)
+        for k, v in result.items()}))
+
+
+if __name__ == "__main__":
+    main()

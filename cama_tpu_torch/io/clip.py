@@ -1,6 +1,7 @@
 """Reader for the CAMA on-disk clip format: the part of
 cama_tpu/io/clip.py's ClipReader that scene compilation and the overlay
-path read (timestamp tables, calibration graph, odometry, label maps).
+path read (timestamp tables, sensor file iterators, calibration graph,
+odometry, label maps).
 
 A copy, because cama_tpu.io.clip imports cama_tpu.se3.core, which imports
 jax whenever it is installed.  Same results as the original
@@ -46,6 +47,35 @@ class ClipReader:
 
     def sensor_filepath(self, sensor, timestamp_ms, ext):
         return os.path.join(self.clip_path, sensor, f"{timestamp_ms}.{ext}")
+
+    def iter_sensor_files(self, sensor, ext, sync=True, start_idx=None, end_idx=None,
+                          start_time=None, end_time=None):
+        """Yield (ts_ms, path) for a sensor, sliced by index or by time range
+        in seconds: frames with start_time <= t < end_time."""
+        ts_list = self.sensor_timestamps_ms(sensor, sync)
+        if start_time is not None or end_time is not None:
+            ts_s = np.asarray(ts_list, dtype=np.float64) / 1000.0
+            lo = 0 if start_time is None else int(np.searchsorted(ts_s, start_time, "left"))
+            hi = len(ts_list) if end_time is None else int(np.searchsorted(ts_s, end_time, "left"))
+            ts_list = ts_list[lo:hi]
+        else:
+            ts_list = ts_list[start_idx:end_idx]
+        for ts in ts_list:
+            yield ts, self.sensor_filepath(sensor, ts, ext)
+
+    def iter_camera(self, camera="camera_front", start_idx=None, end_idx=None):
+        """Yield (ts_s, image BGR) decoded camera frames (needs cv2)."""
+        import cv2
+
+        for ts, path in self.iter_sensor_files(camera, "jpg", sync=True,
+                                               start_idx=start_idx, end_idx=end_idx):
+            yield ts / 1000.0, cv2.imread(path)
+
+    def iter_semantic(self, camera="camera_front", start_idx=None, end_idx=None):
+        """Yield (ts_s, path) of seg_{camera} PNGs."""
+        for ts, path in self.iter_sensor_files(camera, "png", sync=True,
+                                               start_idx=start_idx, end_idx=end_idx):
+            yield ts / 1000.0, path.replace(camera, "seg_" + camera)
 
     def odometry(self, name_txt):
         """Raw TUM array from odometry/<name_txt>."""

@@ -6,7 +6,9 @@ site frames or dropped poses): a vehicle drives ~3 m/s along +x near world
 (-240, -240) past three lane markings, two road edges and a crosswalk.  It
 writes attribute.json, odometry, both label maps and the height grid, and
 optionally per-camera JPEGs.  For the same arguments it writes the same
-bytes as the original (tests/test_torch_host.py).
+bytes as the original (tests/test_torch_host.py).  `add_instance_masks`
+adds the ground-truth instance masks map evaluation reads, again the same
+bytes as the original's (tests/test_torch_eval_scene.py).
 """
 from __future__ import annotations
 
@@ -246,3 +248,50 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
                     os.path.join(cam_dir, f"{ms}.jpg"), _synth_image(cam, k, width, height)
                 )
     return clip
+
+
+def add_instance_masks(clip_path, source="cama", thickness=3, camera_list=CAMERA_LIST,
+                       shift_px=0.0):
+    """Generate `lane_ins_{camera}/<ms>.png` ground-truth instance masks by
+    reprojecting the clip's own lifted labels with the host-exact path: the
+    GT-mask artifact the map metrics consume (eval/map_metrics.py).  Masks
+    are uint16 instance ids at the original camera resolution.  `shift_px`
+    shifts the drawn mask to simulate annotation error (for metric
+    sensitivity tests).  A copy of cama_tpu/io/fixture.py:add_instance_masks
+    on this package's scene compiler and projection; needs cv2."""
+    import cv2
+
+    from cama_tpu_torch.io.scene import compile_scene
+    from cama_tpu_torch.ops.geometry import (
+        compose_frame_matrices,
+        project_frame_exact,
+    )
+
+    scene = compile_scene(clip_path, sources=(source,))
+    fm = compose_frame_matrices(
+        scene.traj[source], scene.frame_times, scene.chassis2cam, scene.K_orig
+    )
+    fp = scene.flat[source]
+    pts = fp.points[fp.valid]
+    inst = fp.inst[fp.valid]
+    h, w = scene.image_size
+    for cam in camera_list:
+        os.makedirs(os.path.join(clip_path, f"lane_ins_{cam}"), exist_ok=True)
+    for k, image_idx in enumerate(fm.frame_indices):
+        if not fm.frame_valid[k]:
+            continue
+        cam_outs = project_frame_exact(
+            pts, np.linalg.inv(fm.chassis2world_f32[k]), scene.chassis2cam,
+            scene.K_orig, w, h,
+        )
+        for c, cam in enumerate(camera_list):
+            vu, keep = cam_outs[c]
+            img = np.zeros((h, w), np.uint16)
+            sel = np.flatnonzero(keep)
+            for i in sel:
+                v, u = vu[i]
+                cv2.circle(img, (int(u), int(v + shift_px)), thickness,
+                           int(inst[i]) + 1, -1)
+            ms = scene.sync_ms[cam][int(image_idx)]
+            cv2.imwrite(os.path.join(clip_path, f"lane_ins_{cam}", f"{ms}.png"), img)
+    return clip_path

@@ -1,7 +1,9 @@
 """Pre-undistorted frame cache: decode + remap each (frame, camera) JPEG
 ONCE per clip, then serve raw uint8 pixels from an mmap-able store.
 
-A copy of cama_tpu/io/frame_cache.py.  Pixels written here are the
+A copy of cama_tpu/io/frame_cache.py, with two repairs of its own: slot
+writes loop until os.pwrite has taken every byte, and each write descriptor
+is closed exactly once.  Pixels written here are the
 byte-exact output of cv2.imread + cv2.remap with the production remap
 grids, so serving them preserves pixel parity with the reference path.  The
 on-disk layout and key are the JAX package's, so both packages share one
@@ -39,12 +41,28 @@ import weakref
 import numpy as np
 
 
-def _close_fds(*fds):
-    for fd in fds:
+def _close_fds(fds):
+    """Close and forget every descriptor in the list `fds`.  Each is popped
+    before it is closed, so whoever gets here second (a reopen, then the
+    finalizer) finds nothing left and closes no number twice: by then the
+    number may belong to another file."""
+    while fds:
         try:
-            os.close(fd)
+            os.close(fds.pop())
         except OSError:
             pass
+
+
+def _pwrite_all(fd, buf, offset):
+    """os.pwrite until every byte of `buf` has landed: one call may write
+    fewer bytes than it was given (a signal, a nearly full disk)."""
+    view = memoryview(buf).cast("B")
+    done = 0
+    while done < len(view):
+        n = os.pwrite(fd, view[done:], offset + done)
+        if n <= 0:
+            raise OSError(f"pwrite wrote {n} bytes")
+        done += n
 
 
 def frame_cache_key(camera_list, output_size, K_orig, d, K_scaled, sync_ms):
@@ -98,6 +116,10 @@ class FrameCache:
         self._data = None
         self._valid = None
         self._data_fd = self._valid_fd = None  # pwrite lane (see _write)
+        # the open descriptors of that lane: one list, shared with the one
+        # finalizer, so each descriptor is closed exactly once
+        self._fds = []
+        weakref.finalize(self, _close_fds, self._fds)
         self.writable = True
         self.dropped_writes = 0
         self._async = bool(async_writes)
@@ -129,12 +151,7 @@ class FrameCache:
 
     def _open(self):
         os.makedirs(self.dir, exist_ok=True)
-        for fd in (self._data_fd, self._valid_fd):
-            if fd is not None:
-                try:
-                    os.close(fd)
-                except OSError:
-                    pass
+        _close_fds(self._fds)
         self._data_fd = self._valid_fd = None
         fresh = True
         if os.path.exists(self._key_path):
@@ -257,9 +274,9 @@ class FrameCache:
         so readers see pwrite data coherently."""
         if self._data_fd is None:
             self._data_fd = os.open(self._data_path, os.O_WRONLY)
+            self._fds.append(self._data_fd)
             self._valid_fd = os.open(self._valid_path, os.O_WRONLY)
-            weakref.finalize(self, _close_fds,
-                             self._data_fd, self._valid_fd)
+            self._fds.append(self._valid_fd)
         return self._data_fd, self._valid_fd
 
     def _write(self, frame_idx, cam_idx, image):
@@ -277,11 +294,12 @@ class FrameCache:
                 np.prod(self.shape[2:], dtype=np.int64))
             dfd, vfd = self._open_write_fds()
             buf = np.ascontiguousarray(image, self.dtype)
-            os.pwrite(dfd, buf, self._data.offset + slot * nbytes)
+            _pwrite_all(dfd, buf.reshape(-1).view(np.uint8),
+                        self._data.offset + slot * nbytes)
             # valid flag lands after the pixels (same fd ordering contract
             # as the old store-through-mmap path: readers never see a torn
             # slot marked valid)
-            os.pwrite(vfd, b"\x01", self._valid.offset + slot)
+            _pwrite_all(vfd, b"\x01", self._valid.offset + slot)
         except Exception:  # disk full, caller shape/index bug, ...: latch
             # read-only.  Anything escaping here would kill the writer
             # thread, after which flush()/the atexit drain deadlock in

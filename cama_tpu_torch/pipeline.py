@@ -124,6 +124,42 @@ def _host_project_chunk(points, valid, A, B, fv, width, height, lo, hi):
     return np.stack([v, u], axis=-1).astype(np.float32), keep
 
 
+def _host_project_compact_chunk(points, valid, A, B, fv, width, height,
+                                lo, hi):
+    """Crop-first _host_project_chunk (the host-evaluation counterpart of
+    eval.map_metrics._project_compact_chunk_eval): returns (vu [F, C, S, 2]
+    float32, keep [F, C, S], sel [F, S] int32), where S is the chunk's
+    largest per-frame crop-survivor count (rows pad with keep False / sel 0)
+    and sel maps each survivor back to the original point axis.  The kept
+    points and their values are those of the full-P projection; only the
+    per-point work shrinks."""
+    p64 = np.asarray(points, np.float64)
+    p4 = np.concatenate([p64, np.ones_like(p64[:, :1])], axis=-1)
+    xyz = np.einsum("fij,pj->fpi", np.asarray(A, np.float64)[:, :3, :], p4)
+    in_crop = (((xyz >= np.asarray(lo, np.float64))
+                & (xyz <= np.asarray(hi, np.float64))).all(-1)
+               & np.asarray(valid, bool)[None, :]
+               & np.asarray(fv, bool)[:, None])
+    idxs = [np.flatnonzero(m) for m in in_crop]
+    F, C = len(idxs), B.shape[1]
+    S = max([len(i) for i in idxs] + [1])  # >= 1 keeps shapes valid when empty
+    vu = np.zeros((F, C, S, 2), np.float32)
+    keep = np.zeros((F, C, S), bool)
+    sel = np.zeros((F, S), np.int32)
+    points = np.asarray(points)
+    for f, idx in enumerate(idxs):
+        n = len(idx)
+        if n == 0:
+            continue
+        vu_f, keep_f = _host_project_chunk(
+            points[idx], np.ones(n, bool), A[f:f + 1], B[f:f + 1],
+            fv[f:f + 1], width, height, lo, hi)
+        vu[f, :, :n] = vu_f[0]
+        keep[f, :, :n] = keep_f[0]
+        sel[f, :n] = idx
+    return vu, keep, sel
+
+
 def rasterize_cls_host(vu, keep, cls, width, height):
     """Host uint8 class raster with the device raster's semantics: floor to
     pixel, radius-2 L1 disk, later point (higher paint priority) wins —
@@ -398,6 +434,7 @@ class ClipPipeline:
         self.remaps = RemapCache()
         self.timers = PhaseTimers()
         self._fcache = False  # False = not yet resolved (None = disabled)
+        self._gtcache = False  # the GT-mask store, resolved the same way
         self._fcache_lock = threading.Lock()
         self._fm = {}
         self._dev = {}
@@ -915,6 +952,92 @@ class ClipPipeline:
         return FrameCache.open(
             self._cache_dir(), len(scene.frame_times), len(scene.camera_list),
             scene.output_size, key,
+            write_budget=self.configs.get("frame_cache_budget"),
+        )
+
+    def gt_mask_cache(self):
+        """Per-clip store of remapped lane_ins GT instance-id images
+        ([frame, camera] -> [H, W] uint16), resolved lazily like
+        frame_cache(): metric GT pays a PNG decode and an INTER_NEAREST
+        remap per camera and frame, and later evaluations read the store
+        back through the mmap instead.  Shares the frame_cache config
+        gates, and the JAX package's store: same key, same bytes."""
+        if self._gtcache is False:
+            with self._fcache_lock:
+                if self._gtcache is False:
+                    self._gtcache = self._build_gt_cache()
+        return self._gtcache
+
+    def _gt_stat_key(self):
+        """Content identity of the on-disk lane_ins PNG population (size and
+        a hash of the head and tail bytes per synced frame).  GT masks can
+        be regenerated while calibration stays identical (a re-labelled
+        clip, or a clip directory copied and then re-masked), and a
+        calibration-only key would serve the stale masks.  mtimes are
+        deliberately not used: the CLI re-extracts the label zip every run,
+        refreshing the mtimes of identical bytes.  By default each file
+        signs by exact size + 8 KiB head + 8 KiB tail hash: compressed PNG
+        data diverges near the start for top-of-image edits and near the
+        end for bottom-of-image edits, so a same-size rewrite cannot slip
+        through either window, except a middle-only rewrite of a file over
+        16 KiB.  configs['gt_cache_full_hash'] hashes the entire file,
+        closing that hole at the cost of reading every PNG once per key
+        resolution."""
+        full = bool(self.configs.get("gt_cache_full_hash"))
+        scene = self.scene
+        h = hashlib.sha256()
+        for cam in scene.camera_list:
+            d = os.path.join(scene.clip_path, f"lane_ins_{cam}")
+            for ms in scene.sync_ms[cam]:
+                path = os.path.join(d, f"{ms}.png")
+                try:
+                    st = os.stat(path)
+                    with open(path, "rb") as f:
+                        if full:
+                            h2 = hashlib.sha256()
+                            for blk in iter(lambda: f.read(1 << 20), b""):
+                                h2.update(blk)
+                        else:
+                            h2 = hashlib.sha256(f.read(8192))
+                            if st.st_size > 16384:
+                                f.seek(-8192, os.SEEK_END)
+                            h2.update(f.read(8192))
+                    h.update(f"{cam}:{ms}:{st.st_size}:".encode())
+                    h.update(h2.digest())
+                    h.update(b";")
+                except OSError:
+                    h.update(f"{cam}:{ms}:absent;".encode())
+        return h.hexdigest()
+
+    def _gt_cache_key(self):
+        scene = self.scene
+        return f"gt:{self._gt_stat_key()}:" + frame_cache_key(
+            scene.camera_list, scene.output_size, scene.K_orig,
+            scene.d, scene.K_scaled, scene.sync_ms,
+        )
+
+    def refresh_gt_cache(self):
+        """Re-check the GT PNG population signature and drop a stale GT-mask
+        store (the next access resolves against the fresh key).  Called by
+        MapEvaluator at every evaluate_scene* entry, so masks regenerated
+        mid-process are picked up at the next evaluation.  Cost per call:
+        one stat and two 8 KiB reads per PNG, or a full-content hash under
+        configs['gt_cache_full_hash']."""
+        with self._fcache_lock:
+            cache = self._gtcache
+            if cache in (False, None):
+                return  # unresolved (next access builds fresh) or disabled
+            if self._gt_cache_key() != cache.key:
+                self._gtcache = False  # stale: resolve again on next access
+
+    def _build_gt_cache(self):
+        scene = self.scene
+        if not self.configs.get("frame_cache", True):
+            return None
+        return FrameCache.open(
+            self._cache_dir(), len(scene.frame_times), len(scene.camera_list),
+            scene.output_size, self._gt_cache_key(),
+            name="gt_ids", dtype=np.uint16, channels=0,
             write_budget=self.configs.get("frame_cache_budget"),
         )
 

@@ -1,6 +1,6 @@
 """Per-phase wall-clock timers of the pipeline: cama_tpu/profiling.py's
 PhaseTimers, cut to the accumulation the port reads (total and count,
-timed phases and added events)."""
+timed phases and added events, and the per-phase report)."""
 from __future__ import annotations
 
 import contextlib
@@ -28,3 +28,15 @@ class PhaseTimers:
     def add(self, name, seconds, n=1):
         self.total[name] += seconds
         self.count[name] += n
+
+    def report(self):
+        """One line per phase: seconds, count, ms per call, calls per
+        second."""
+        lines = []
+        for name in sorted(self.total):
+            t, n = self.total[name], self.count[name]
+            lines.append(
+                f"{name:<28} {t:8.3f}s  n={n:<6} {1000 * t / max(n, 1):8.2f} ms/it"
+                f"  {n / t if t else float('nan'):8.1f} it/s"
+            )
+        return "\n".join(lines)

@@ -82,13 +82,35 @@ next to this script):
        the card in project_frame_exact's op order (matmul, and elementwise)
        against the host chain's keep bits and pixel floors, with its time.
 
+  6. map evaluation (cama_tpu_torch.eval.map_metrics), lines tagged [eval];
+     plain tensor work, no kernel of csrc/:
+     - the ops at full width, no cv2 needed: ground-truth ids
+       [8, 6, 540, 960] uint16 drawn from a seed (thin strokes, some closer
+       than 2 * tolerance, exact ties, one empty camera) and one real
+       projection chunk of the wide fixture, full-P and crop-compacted; on
+       the card against the same code on CPU tensors fed the same (vu,
+       keep): both distance fields, both vote fields, the count raster, the
+       votes under keep and the Chebyshev partials differ in 0 entries, the
+       Euclidean sre_sum by at most 1e-6 relative; squared_edt equals
+       scipy's; _eval_chunk_build then _eval_chunk_serve give equal outputs,
+       with their ms per chunk (CUDA events, and the card alone) and device
+       launches;
+     - when cv2 imports: add_instance_masks on the wide fixture (drawn
+       MASK_SHIFT_PX low), then
+       MapEvaluator.evaluate_scene_all on ClipPipeline(device='cuda'), cold
+       and warm, for both distances: equal dicts, equal to compact='off' and
+       resident='off', within 1e-4 of backend='host'; evaluated frames/s,
+       the card's busy share, resident bytes, peak device memory and the
+       evaluator's PhaseTimers report.  Every chunk function of the
+       evaluator is wrapped to raise on a CPU tensor.
+
 Pipelines of phases 2-4 that are expected to run the counting pass first
 delete the clip's counts sidecar (forget_counts).
 
 The last two lines are the kernels' JSON record and the result line.  The
 script fails if any module of jax or of the JAX package cama_tpu was
-loaded.  Needs numpy and torch with CUDA, nvcc and g++; no yaml or ffmpeg,
-and cv2 only for the one sub-phase named above.
+loaded.  Needs numpy, scipy and torch with CUDA, nvcc and g++; no yaml or
+ffmpeg, and cv2 only for the two sub-phases named above.
 """
 from __future__ import annotations
 
@@ -114,6 +136,7 @@ MIN_WINDOW_S = 1.0     # each timed stream window loops the clip this long
 WINDOWS = 3
 POOL_THREADS = 6       # write_videos' default compositor pool
 DEVICE = "cuda"
+MASK_SHIFT_PX = 6.0    # phase 6 draws its ground truth this far off the map
 # mangled-name fragments of the kernels -> the names ptxas' report is shown by
 KERNEL_SYMBOLS = {"fc_tileILb0": "fc_tile<false> (count_union)",
                   "fc_tileILb1": "fc_tile<true> (fused_compact_project)",
@@ -850,6 +873,332 @@ def correctness_phase(clip, dev, card):
     f64_on_card(pipe, "cama", dev, card)
 
 
+def synthetic_gt_ids(shape, seed=6):
+    """[K, C, H, W] uint16 instance ids drawn with NumPy from a seed: per
+    camera a dozen thin strokes (1 to 3 px) with ids up to 60000, each third
+    one shadowed 6 px away by another id (closer than 2 * tolerance), a few
+    pixel pairs that leave the pixels between them exactly tied (along a
+    row, along a column), and one camera left empty."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K, C, H, W = shape
+    ids = np.zeros(shape, np.uint16)
+    for k in range(K):
+        for c in range(C):
+            if (k, c) == (K - 1, C - 1):
+                continue  # the empty camera
+            img = ids[k, c]
+            for j in range(12):
+                y0, y1 = rng.integers(0, H, 2)
+                x0, x1 = rng.integers(0, W, 2)
+                n = 2 * max(abs(int(y1) - int(y0)), abs(int(x1) - int(x0))) + 2
+                yy = np.rint(np.linspace(y0, y1, n)).astype(np.int64)
+                xx = np.rint(np.linspace(x0, x1, n)).astype(np.int64)
+                for t in range(int(rng.integers(1, 4))):
+                    img[np.clip(yy + t, 0, H - 1), xx] = 1 + j * 5000
+                if j % 3 == 0:
+                    img[np.clip(yy + 6, 0, H - 1), xx] = 2 + j * 5000
+            y, x = int(rng.integers(20, H - 20)), int(rng.integers(20, W - 20))
+            img[y - 8:y + 9, x - 8:x + 9] = 0
+            img[y, x - 2], img[y, x + 2] = 101, 102      # tie at (y, x)
+            img[y - 6, x - 6], img[y - 2, x - 6] = 103, 104  # column tie
+    return ids
+
+
+def forget_gt_store(pipe):
+    """Delete the clip's GT-mask store and make the pipeline resolve it
+    again, so the next evaluation decodes and remaps every PNG."""
+    cache = pipe.gt_mask_cache()
+    if cache is not None:
+        cache.flush()
+        for path in (cache._data_path, cache._valid_path, cache._key_path):
+            with contextlib.suppress(OSError):
+                os.remove(path)
+    pipe._gtcache = False
+
+
+def eval_phase(clip, dev, card):
+    """Phase 6 (module docstring): map evaluation.  Raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from cama_tpu_torch import pipeline as tp
+    from cama_tpu_torch.eval import map_metrics as tm
+    from cama_tpu_torch.io.fixture import add_instance_masks
+    from cama_tpu_torch.ops.geometry import project_frames
+    from cama_tpu_torch.tools.bench_kernels import time_ms
+
+    TOL, RAD = 5, 20
+    cpu = torch.device("cpu")
+
+    # every chunk function of the evaluator must see tensors on the card
+    # (dev) only
+    guarded = ("_eval_chunk_build", "_eval_chunk_serve",
+               "frame_metrics_chunk_packed", "frame_metrics_rows_packed",
+               "_metrics_and_votes_chunk", "instance_votes_chunk")
+    calls = dict.fromkeys(guarded, 0)
+
+    def on_card(name, real):
+        def call(*a, **k):
+            out = real(*a, **k)
+            flat = list(a) + list(k.values())
+            for o in (out if isinstance(out, tuple) else (out,)):
+                flat += list(o.values()) if isinstance(o, dict) else [o]
+            for t in flat:
+                if isinstance(t, torch.Tensor) and t.device.type != dev.type:
+                    raise RuntimeError(f"{name}: a tensor on {t.device}")
+            calls[name] += 1
+            return out
+        return call
+
+    reals = {name: getattr(tm, name) for name in guarded}
+    for name, real in reals.items():
+        setattr(tm, name, on_card(name, real))
+
+    forget_counts(clip)
+    pipe = tp.ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="auto",
+                           device=dev)
+    pipe.overlay_mode("cama")  # the counting pass sizes the crop-first split
+    k1 = pipe.crop_compact_k("cama")
+    st = pipe.scene_tensors("cama")
+    h, w = pipe.scene.output_size
+    lo, hi = pipe._crop_lo, pipe._crop_hi
+    P = int(st.points.shape[0])
+    C = len(pipe.scene.camera_list)
+    if k1 is None:
+        raise RuntimeError("the wide fixture did not engage the crop split")
+    sl = slice(0, CHUNK)
+    geo = (st.points, st.valid, st.A[sl], st.B[sl], st.frame_valid[sl])
+
+    # ---- the ops at full width, card against CPU on the same (vu, keep) ----
+    ids_np = synthetic_gt_ids((CHUNK, C, h, w))
+    ids_c = tm.device_ids(ids_np, dev)
+    ids_h = torch.from_numpy(ids_np)
+    if not torch.equal(ids_c.cpu().view(torch.int16), ids_h.view(torch.int16)):
+        raise RuntimeError("device_ids does not rebuild the id stack")
+    vu_full, keep_full = project_frames(*geo, w, h, lo, hi)
+    vu_k, keep_k, sel_k = tm._project_compact_chunk_eval(*geo, w, h, lo, hi,
+                                                         k1)
+    fv = st.frame_valid[sl].to(torch.float32)
+    diffs = {}
+
+    def differ(name, a, b):
+        """Entries of the card's tensor a that differ from the CPU's b."""
+        a, b = tm._bits16(a.cpu()), tm._bits16(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise RuntimeError(f"{name}: {a.dtype}{tuple(a.shape)} on the "
+                               f"card, {b.dtype}{tuple(b.shape)} on the CPU")
+        diffs[name] = int((a != b).sum())
+
+    mask_c, mask_h = tm._foreground(ids_c), tm._foreground(ids_h)
+    fields = {}
+    for distance in ("chebyshev", "euclidean"):
+        rounds = tm._dist_rounds(RAD, TOL, distance)
+        fields[distance] = (tm._dist_field(mask_c, rounds, distance),
+                            tm._dist_field(mask_h, rounds, distance))
+        differ(f"dist_field {distance}", *fields[distance])
+    tie_ok = True
+    for assignment in ("nearest", "chebyshev"):
+        vf_c = tm._vote_field(ids_c, TOL, assignment)
+        vf_h = tm._vote_field(ids_h, TOL, assignment)
+        differ(f"vote_field {assignment}", vf_c, vf_h)
+        if assignment == "nearest":
+            # the tied pixels go to the smaller column / the upper row
+            vf = vf_h.numpy()
+            for k in range(CHUNK):
+                for c in range(C):
+                    ys, xs = np.nonzero(ids_np[k, c] == 101)
+                    if len(ys):
+                        y, x = int(ys[0]), int(xs[0]) + 2
+                        tie_ok &= (vf[k, c, y, x] == 101
+                                   and vf[k, c, y - 4, x - 6] == 103)
+    rel_sre = 0.0
+    for label, (vu, keep) in (("full P", (vu_full, keep_full)),
+                              ("k1", (vu_k, keep_k))):
+        vu_h, keep_h = vu.cpu(), keep.cpu()
+        keep_np = keep_h.numpy()
+        vi, ui = tm._clip_pixels(vu, h, w)
+        vi_h, ui_h = tm._clip_pixels(vu_h, h, w)
+        cnt_c = tm._point_count_raster(vi, ui, keep, h, w)
+        differ(f"count raster {label}", cnt_c,
+               tm._point_count_raster(vi_h, ui_h, keep_h, h, w))
+        if label == "k1":
+            diffs["count raster k1 vs full P"] = int((cnt_c != cnt_full).sum())
+        else:
+            cnt_full = cnt_c
+        votes_c = tm.instance_votes_chunk(ids_c, vu, keep, TOL).cpu().numpy()
+        votes_h = reals["instance_votes_chunk"](  # unguarded: the CPU side
+            ids_h, vu_h, keep_h, TOL).numpy()
+        diffs[f"votes under keep {label}"] = int(
+            (votes_c[keep_np] != votes_h[keep_np]).sum())
+        for distance in ("chebyshev", "euclidean"):
+            f_c, f_h = fields[distance]
+            p_c = tm._frame_metrics_from_field(mask_c, f_c, vu, keep, RAD,
+                                               TOL, distance)
+            p_h = tm._frame_metrics_from_field(mask_h, f_h, vu_h, keep_h, RAD,
+                                               TOL, distance)
+            bad = 0
+            for key in tm.PARTIAL_KEYS:
+                a, b = p_c[key].cpu().numpy(), p_h[key].numpy()
+                if distance == "euclidean" and key == "sre_sum":
+                    rel_sre = max(rel_sre, float(
+                        np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+                else:
+                    bad += int((a != b).sum())
+            diffs[f"{distance} partials {label}"] = bad
+    from scipy import ndimage
+
+    one = mask_h[0, 0].numpy()
+    edt = tm.squared_edt(mask_c[0, 0]).cpu().numpy()
+    diffs["squared_edt vs scipy"] = int((edt != (
+        ndimage.distance_transform_edt(~one) ** 2).astype(np.float32)).sum())
+    n_kept = int(keep_k.sum())
+    say("eval", f"ops at full width, GT ids [{CHUNK}, {C}, {h}, {w}] uint16 "
+                f"({int(mask_h.sum())} labelled pixels, one camera empty), "
+                f"one projection chunk of the wide fixture ({P} points, k1 "
+                f"{k1}, {n_kept} kept point-cameras), card against the same "
+                f"code on CPU tensors fed the same (vu, keep); entries "
+                f"differing: "
+                + ", ".join(f"{k} {v}" for k, v in diffs.items())
+                + f" (each must be 0); exact ties resolved as documented: "
+                f"{bool(tie_ok)}; Euclidean sre_sum relative difference "
+                f"{rel_sre:.3e} (<= 1e-6)")
+    if any(diffs.values()) or not tie_ok or not rel_sre <= 1e-6 or not n_kept:
+        raise RuntimeError("an evaluation op on the card disagrees with the "
+                           "CPU")
+
+    # ---- the fused chunk: build, then serve ----
+    fvb = st.frame_valid[sl]
+    rows = []
+    for distance in ("chebyshev", "euclidean"):
+        args = (w, h, lo, hi, k1, RAD, TOL, distance)
+        built = tm._eval_chunk_build(*geo[:4], fvb, ids_c, *args, "nearest",
+                                     True)
+        served = tm._eval_chunk_serve(*geo[:4], fvb, *built[4:], *args)
+        same = (all(torch.equal(served[0][k], built[0][k])
+                    for k in tm.PARTIAL_KEYS)
+                and torch.equal(tm._bits16(served[1]), tm._bits16(built[1]))
+                and torch.equal(served[2], built[2])
+                and torch.equal(served[3], built[3]))
+        if not same:
+            raise RuntimeError(f"{distance}: serve differs from build")
+        nbytes = sum(t.numel() * t.element_size() for t in built[4:])
+
+        def build():
+            return tm._eval_chunk_build(*geo[:4], fvb,
+                                        tm.device_ids(ids_np, dev), *args,
+                                        "nearest", True)
+
+        def serve():
+            return tm._eval_chunk_serve(*geo[:4], fvb, *built[4:], *args)
+
+        line = []
+        for name, fn in (("build (ids upload, fields, evaluation)", build),
+                         ("serve", serve)):
+            ms = time_ms(fn, runs=5)
+            seen, card_ms = device_work(fn, reps=2)
+            line.append(f"{name} {ms:.3f} ms by CUDA events (median of 5), "
+                        f"{fmt(card_ms, 1.0)} ms on the card alone, "
+                        + ("launches not measured" if seen is None else
+                           f"{sum(seen.values())} device launches"))
+        rows.append(f"{distance}: " + "; ".join(line)
+                    + f"; fields kept {nbytes / 1e6:.1f} MB")
+        del built, served
+    say("eval", f"_eval_chunk_build then _eval_chunk_serve, one chunk of "
+                f"{CHUNK} frames with votes, outputs equal; "
+                + " | ".join(rows) + f" | {card}")
+    del fields, cnt_full, cnt_c, vf_c, vf_h, ids_c, mask_c
+    torch.cuda.empty_cache()
+
+    # ---- the scene, through the entry point ----
+    if importlib.util.find_spec("cv2") is None:
+        say("eval", "scene run skipped: cv2 not importable")
+    else:
+        t0 = time.perf_counter()
+        add_instance_masks(clip, shift_px=MASK_SHIFT_PX)
+        mask_secs = time.perf_counter() - t0
+        for distance in ("chebyshev", "euclidean"):
+            forget_gt_store(pipe)  # a cold pass decodes and remaps the PNGs
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev = tm.MapEvaluator(tolerance=TOL, max_radius=RAD,
+                                 distance=distance)
+            n_before = dict(calls)
+            t0 = time.perf_counter()
+            cold = ev.evaluate_scene_all(pipe)
+            cold_secs = time.perf_counter() - t0
+            cold_report = ev.timers.report()
+            peak = torch.cuda.max_memory_allocated()
+            ev.timers = type(ev.timers)()
+            warm_secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                warm = ev.evaluate_scene_all(pipe)
+                warm_secs.append(time.perf_counter() - t0)
+                if warm != cold:
+                    raise RuntimeError(f"{distance}: warm {warm} != cold "
+                                       f"{cold}")
+            n_chunks = calls["_eval_chunk_build"] - n_before["_eval_chunk_build"]
+            n_serve = calls["_eval_chunk_serve"] - n_before["_eval_chunk_serve"]
+            if n_chunks != 2 or n_serve != 6:
+                raise RuntimeError(f"{distance}: {n_chunks} builds and "
+                                   f"{n_serve} serves, expected 2 and 6")
+            busy = device_busy_ms(lambda: ev.evaluate_scene_all(pipe))
+            store = ev._resident_fields[pipe]
+            for kw in ({"compact": "off"}, {"resident": "off"}):
+                other = tm.MapEvaluator(tolerance=TOL, max_radius=RAD,
+                                        distance=distance,
+                                        **kw).evaluate_scene_all(pipe)
+                if other != cold:
+                    raise RuntimeError(f"{distance} {kw}: {other} != {cold}")
+            t0 = time.perf_counter()
+            hev = tm.MapEvaluator(tolerance=TOL, max_radius=RAD,
+                                  distance=distance, backend="host")
+            host = (hev.evaluate_scene_all(pipe) if distance == "chebyshev"
+                    else hev.evaluate_scene(pipe))
+            host_secs = time.perf_counter() - t0
+            apart = max(abs(cold[k] - host[k]) for k in host
+                        if isinstance(host[k], float))
+            n = cold["frames_evaluated"]
+            wm = statistics.median(warm_secs)
+            say("eval", f"MapEvaluator(distance={distance!r})."
+                        f"evaluate_scene_all on ClipPipeline(device='cuda'), "
+                        f"wide fixture 'cama', {n} frames: {json.dumps(cold)}; "
+                        f"warm == cold (3 warm passes), compact='off' and "
+                        f"resident='off' give the same dict; "
+                        f"backend='host' "
+                        f"({'evaluate_scene_all' if distance == 'chebyshev' else 'evaluate_scene'}, "
+                        f"{host_secs:.2f} s) differs by at most {apart:.3e} "
+                        f"(<= 1e-4); cold {n / cold_secs:.2f} evaluated "
+                        f"frames/s ({cold_secs:.3f} s), warm "
+                        f"{n / wm:.2f} ({1000.0 * wm:.3f} ms, median of 3; "
+                        + " / ".join(f"{1000.0 * t:.3f}" for t in warm_secs)
+                        + f"), card busy in a warm pass "
+                        f"{fmt(busy, 1.0)} ms"
+                        + ("" if busy is None else
+                           f" = {100.0 * busy / (1000.0 * wm):.2f} % of it")
+                        + f"; resident fields {store['bytes'] / 1e6:.1f} MB "
+                        f"in {len(store['chunks'])} chunks; peak device "
+                        f"memory of the cold pass {peak / 2**20:.1f} MiB, "
+                        f"{before / 2**20:.1f} MiB allocated before it | "
+                        f"{card}")
+            say("eval", f"{distance} PhaseTimers, cold pass:\n{cold_report}")
+            say("eval", f"{distance} PhaseTimers, 3 warm passes:\n"
+                        f"{ev.timers.report()}")
+            if not apart <= 1e-4 or n != 16 or set(host) - set(cold):
+                raise RuntimeError(f"{distance}: device and host disagree")
+        say("eval", f"instance masks of the wide fixture written in "
+                    f"{mask_secs:.2f} s (add_instance_masks, 96 PNGs, drawn "
+                    f"{MASK_SHIFT_PX} px low so the metrics are not all 1.0)")
+    for name, real in reals.items():
+        setattr(tm, name, real)
+    say("eval", "calls of the evaluator's chunk functions, every tensor of "
+                f"each on the card: {calls}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1470,6 +1819,9 @@ def main():
 
     # ---- phase 5: the correctness path ----
     correctness_phase(clip, dev, card)
+
+    # ---- phase 6: map evaluation ----
+    eval_phase(clip, dev, card)
 
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))

@@ -156,3 +156,23 @@ def test_cli_batches_two_scenes(clips, tmp_path, capsys, batch):
                       "scene-b_cama.mp4", "scene-b_nuScenes.mp4"]
     for v in videos:
         assert (tmp_path / "videos" / v).stat().st_size > 0
+
+
+def test_cli_batched_group_failure_counts_each_member(clips, tmp_path,
+                                                      monkeypatch, capsys):
+    """A batched group that fails is one failure per member scene, labelled
+    by scene name as the JAX CLI does (cama_tpu/cli.py:_isolated), and the
+    exit code reports it."""
+    from cama_tpu_torch import cli
+
+    def boom(self, *args, **kwargs):
+        raise RuntimeError("encoder lost")
+
+    monkeypatch.setattr(tpipe.MultiScenePipeline, "write_videos", boom)
+    configs, _ = cli.load_config(_config(tmp_path, clips))
+    failures = cli.run(configs, device="cpu")
+    assert [label for label, _ in failures] == ["scene-a", "scene-b"]
+    assert all("encoder lost" in err for _, err in failures)
+    assert "2 scene(s) failed" in capsys.readouterr().out
+    assert cli.main(["--config", _config(tmp_path, clips),
+                     "--device", "cpu"]) == 1

@@ -1,0 +1,404 @@
+"""The stateless ops of cama_tpu_torch.eval.map_metrics against their JAX
+originals (cama_tpu.eval.map_metrics) on identical arrays, made from a seed
+with NumPy, at a small size.  Everything integer-valued is held bit for bit;
+the one sum with irrational terms (the Euclidean sre_sum) to 1e-6 relative.
+"""
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+
+import jax.numpy as jnp
+
+from cama_tpu.eval import map_metrics as jm
+from cama_tpu_torch.eval import map_metrics as tm
+
+K, C, H, W, P = 2, 3, 40, 64, 500
+TOL, RAD = 3, 6
+SRE_RTOL = 1e-6  # Euclidean sre_sum: irrational terms, order of summation
+KEYS = ("sre_sum", "n_points", "n_hit", "gt_total", "gt_covered")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    thread in this one keeps torch's CPU ops on whole images from
+    oversubscribing the cores (results do not depend on the thread count:
+    every compared sum is integer-valued or held to a tolerance)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def T(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def N(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _id_cases():
+    """[K*C images] of instance ids: strokes with several ids, two strokes
+    closer than 2*TOL, exact ties (two ids equidistant from the pixels
+    between them, along a row and along a column), an empty image, a full
+    image, and single pixels at the borders and corners."""
+    rng = np.random.default_rng(7)
+    ids = np.zeros((K, C, H, W), np.uint16)
+    a = ids[0, 0]                      # strokes, some close to each other
+    a[5, 3:40] = 1
+    a[9, 10:50] = 2                    # 4 rows below id 1: within 2*TOL
+    a[20:35, 30] = 40000               # an id above int16's range
+    a[20:35, 34] = 7                   # column tie at x = 32
+    b = ids[0, 1]                      # exact ties along rows and columns
+    b[10, 10], b[10, 14] = 3, 4        # row tie at (10, 12)
+    b[20, 20], b[24, 20] = 5, 6        # column tie at (22, 20)
+    b[30, 40], b[32, 42] = 9, 8        # diagonal pair
+    # ids[0, 2] stays empty
+    ids[1, 0][:] = 11                  # full
+    c = ids[1, 1]                      # single pixels at borders and corners
+    c[0, 0], c[H - 1, W - 1], c[0, W - 1], c[H - 1, 0] = 1, 2, 3, 4
+    c[0, W // 2], c[H // 2, 0] = 5, 6
+    d = ids[1, 2]                      # random sparse labels
+    sel = rng.random((H, W)) < 0.02
+    d[sel] = rng.integers(1, 9, sel.sum())
+    return ids
+
+
+IDS = _id_cases()
+MASKS = IDS > 0
+
+
+def _points(seed=3):
+    """(vu [K, C, P, 2] f32, keep [K, C, P]): points over and a little
+    beyond the image, several to a pixel, about two thirds of those in the
+    left 40 columns kept (so some ground truth stays uncovered)."""
+    rng = np.random.default_rng(seed)
+    vu = np.stack([rng.uniform(-3, H + 3, (K, C, P)),
+                   rng.uniform(-3, W + 3, (K, C, P))], -1).astype(np.float32)
+    vu[:, :, :50] = vu[:, :, 50:100]   # repeated pixels: counts above one
+    inside = ((vu[..., 0] >= 0) & (vu[..., 0] < H)
+              & (vu[..., 1] >= 0) & (vu[..., 1] < W))
+    keep = inside & (rng.random((K, C, P)) < 0.7) & (vu[..., 1] < 40)
+    return vu, keep
+
+
+VU, KEEP = _points()
+
+
+def test_dilate3x3():
+    got = tm.dilate3x3(T(MASKS))
+    np.testing.assert_array_equal(N(got), np.asarray(jm.dilate3x3(MASKS)))
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_dilate_ids(rounds):
+    want = np.asarray(jm.dilate_ids(jnp.asarray(IDS.astype(np.int32)), rounds))
+    np.testing.assert_array_equal(
+        N(tm.dilate_ids(T(IDS.astype(np.int32)), rounds)), want)
+    got16 = tm.dilate_ids(T(IDS), rounds)
+    assert got16.dtype == torch.uint16
+    np.testing.assert_array_equal(N(got16), want)
+
+
+def test_nearest_dist_rows():
+    """Bit for bit, the empty columns' 1e4 + y + 1 / 1e4 + H - y too."""
+    want = np.asarray(jm._nearest_dist_rows(jnp.asarray(MASKS)))
+    got = N(tm._nearest_dist_rows(T(MASKS)))
+    np.testing.assert_array_equal(got, want)
+    y = np.arange(H)
+    np.testing.assert_array_equal(
+        got[0, 2, :, 0], np.minimum(1e4 + y + 1, 1e4 + H - y))
+
+
+@pytest.mark.parametrize("radius", [1, 4, W + 3])
+def test_squared_edt_within(radius):
+    want = np.asarray(jm.squared_edt_within(jnp.asarray(MASKS), radius))
+    got = tm.squared_edt_within(T(MASKS), radius)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(N(got), want)
+
+
+def test_squared_edt_equals_jax_and_scipy():
+    got = N(tm.squared_edt(T(MASKS)))
+    np.testing.assert_array_equal(got, np.asarray(jm.squared_edt(MASKS)))
+    for k, c in ((0, 0), (0, 1), (1, 1), (1, 2)):
+        ref = ndimage.distance_transform_edt(~MASKS[k, c]) ** 2
+        np.testing.assert_array_equal(got[k, c], ref.astype(np.float32))
+
+
+def test_nearest_rows_id():
+    ids = IDS.astype(np.int32)
+    wd, wi = jm._nearest_rows_id(jnp.asarray(ids))
+    gd, gi = tm._nearest_rows_id(T(ids))
+    np.testing.assert_array_equal(N(gd), np.asarray(wd))
+    np.testing.assert_array_equal(N(gi), np.asarray(wi))
+    # the column tie goes to the upper neighbour
+    assert int(gi[0, 1, 22, 20]) == 5
+
+
+def test_nearest_id_edt():
+    ids = IDS.astype(np.int32)
+    wd, wi = jm.nearest_id_edt(jnp.asarray(ids))
+    gd, gi = tm.nearest_id_edt(T(ids))
+    np.testing.assert_array_equal(N(gd), np.asarray(wd))
+    np.testing.assert_array_equal(N(gi), np.asarray(wi))
+    # the row tie goes to the smaller source column
+    assert int(gi[0, 1, 10, 12]) == 3 and int(gi[0, 0, 25, 32]) == 40000
+
+
+@pytest.mark.parametrize("radius", [TOL, 9])
+def test_nearest_id_within(radius):
+    ids = IDS.astype(np.int32)
+    wd, wi = jm.nearest_id_within(jnp.asarray(ids), radius)
+    gd, gi = tm.nearest_id_within(T(ids), radius)
+    np.testing.assert_array_equal(N(gd), np.asarray(wd))
+    np.testing.assert_array_equal(N(gi), np.asarray(wi))
+    if radius >= 2:
+        assert int(gi[0, 1, 10, 12]) == 3
+
+
+@pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])
+def test_dist_field(distance):
+    rounds = jm._dist_rounds(RAD, TOL, distance)
+    assert rounds == tm._dist_rounds(RAD, TOL, distance)
+    want = np.asarray(jm._dist_field(jnp.asarray(MASKS), rounds, distance))
+    got = tm._dist_field(T(MASKS), rounds, distance)
+    assert str(got.dtype).split(".")[-1] == want.dtype.name
+    np.testing.assert_array_equal(N(got), want)
+
+
+@pytest.mark.parametrize("assignment", ["nearest", "chebyshev"])
+def test_vote_field(assignment):
+    want = np.asarray(jm._vote_field(jnp.asarray(IDS), TOL, assignment))
+    got = tm._vote_field(T(IDS), TOL, assignment)
+    assert got.dtype == torch.uint16 and want.dtype == np.uint16
+    np.testing.assert_array_equal(N(got), want)
+
+
+@pytest.mark.parametrize("width", [W, 61, 8, 3])
+def test_packbits_and_unpack_bits(width):
+    bits = MASKS[..., :width] ^ (np.arange(width) % 3 == 0)
+    packed = tm.packbits(T(bits))
+    assert packed.dtype == torch.uint8
+    np.testing.assert_array_equal(N(packed), np.packbits(bits, axis=-1))
+    np.testing.assert_array_equal(
+        N(packed), np.asarray(jnp.packbits(jnp.asarray(bits), axis=-1)))
+    back = tm._unpack_bits(packed, width)
+    np.testing.assert_array_equal(N(back), bits)
+    np.testing.assert_array_equal(
+        N(back), np.asarray(jm._unpack_bits(jnp.asarray(N(packed)), width)))
+
+
+def test_scatter_ids():
+    shape = (2, 5, 7)
+    size = 70
+    idx = np.full((16,), size, np.int32)
+    vals = np.zeros((16,), np.uint16)
+    idx[:5] = [0, 69, 13, 35, 7]
+    vals[:5] = [1, 65535, 3, 40000, 9]
+    want = np.asarray(jm._scatter_ids(jnp.asarray(idx), jnp.asarray(vals), shape))
+    got = tm._scatter_ids(T(idx), T(vals), shape)
+    assert got.dtype == torch.uint16 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(N(got), want)
+
+
+@pytest.mark.parametrize("case", ["coo", "dense", "int32", "empty"])
+def test_device_ids(case):
+    """The COO branch (sparse ids), the dense branch (the full image pushes
+    the padded COO budget past the dense bytes), a wider dtype, no ids."""
+    ids = {"coo": np.where(np.arange(K * C * H * W).reshape(IDS.shape) % 97
+                           == 0, IDS.max(), 0).astype(np.uint16),
+           "dense": IDS[1:, :1], "int32": IDS[0].astype(np.int32),
+           "empty": np.zeros((1, C, H, W), np.uint16)}[case]
+    nnz = np.count_nonzero(ids)
+    budget = 1 << max(10, (nnz - 1).bit_length() if nnz else 0)
+    assert (6 * budget < 2 * ids.size) == (case != "dense")
+    got = tm.device_ids(ids, device="cpu")
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(N(got), np.asarray(jm.device_ids(ids)))
+    np.testing.assert_array_equal(N(got), ids)
+
+
+def test_device_ids_rejects_wide_ids():
+    with pytest.raises(ValueError, match="uint16"):
+        tm.device_ids(np.full((1, 1, 4, 4), 70000, np.int32), device="cpu")
+
+
+def test_clip_pixels_matches_on_finite_values():
+    vu = np.array([[[-5.5, -0.5], [0.0, 0.99], [H - 0.01, W - 1.0],
+                    [H + 7.0, W + 0.5], [3.7, 1e9], [-1e9, 12.2]]], np.float32)
+    wv, wu = jm._clip_pixels(jnp.asarray(vu), H, W)
+    gv, gu = tm._clip_pixels(T(vu), H, W)
+    np.testing.assert_array_equal(N(gv), np.asarray(wv))
+    np.testing.assert_array_equal(N(gu), np.asarray(wu))
+
+
+def test_point_count_raster():
+    wv, wu = jm._clip_pixels(jnp.asarray(VU[0]), H, W)
+    want = np.asarray(jm._point_count_raster(wv, wu, jnp.asarray(KEEP[0]), H, W))
+    gv, gu = tm._clip_pixels(T(VU[0]), H, W)
+    got = tm._point_count_raster(gv, gu, T(KEEP[0]), H, W)
+    np.testing.assert_array_equal(N(got), want)
+    assert want.max() >= 2 and want.sum() == KEEP[0].sum()
+    # any leading shape: the chunk at once equals frame by frame
+    gv, gu = tm._clip_pixels(T(VU), H, W)
+    both = tm._point_count_raster(gv, gu, T(KEEP), H, W)
+    np.testing.assert_array_equal(N(both[0]), want)
+
+
+@pytest.mark.parametrize("assignment", ["nearest", "chebyshev"])
+def test_instance_votes_chunk_under_keep(assignment):
+    want = np.asarray(jm.instance_votes_chunk(
+        jnp.asarray(IDS), jnp.asarray(VU), jnp.asarray(KEEP), TOL, assignment))
+    got = tm.instance_votes_chunk(T(IDS), T(VU), T(KEEP), TOL, assignment)
+    assert got.dtype == torch.uint16 and want.dtype == np.uint16
+    np.testing.assert_array_equal(N(got)[KEEP], want[KEEP])
+    assert (want[KEEP] > 0).any() and (want[KEEP] == 40000).any()
+
+
+def _assert_partials(got, want, distance, rows=None):
+    for key in KEYS:
+        g = np.asarray(N(got[key]), np.float32)
+        w = np.asarray(want[key], np.float32)
+        if rows is not None:
+            assert g.shape == w.shape == (rows,)
+        if distance == "euclidean" and key == "sre_sum":
+            np.testing.assert_allclose(g, w, rtol=SRE_RTOL)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+@pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])
+def test_frame_metrics_forms(distance):
+    """frame_metrics, _rows, _chunk and the two _packed forms: every
+    Chebyshev partial exact; Euclidean sre_sum to 1e-6 relative, the other
+    four exact."""
+    fv = np.array([1.0, 0.0], np.float32)
+    packed = np.packbits(MASKS, axis=-1)
+    j = [jnp.asarray(a) for a in (MASKS, VU, KEEP)]
+    t = [T(a) for a in (MASKS, VU, KEEP)]
+    _assert_partials(
+        tm.frame_metrics(t[0][0], t[1][0], t[2][0], RAD, TOL, distance),
+        jm.frame_metrics(j[0][0], j[1][0], j[2][0], RAD, TOL, distance),
+        distance)
+    want_rows = jm.frame_metrics_rows(*j, RAD, TOL, distance)
+    _assert_partials(tm.frame_metrics_rows(*t, RAD, TOL, distance),
+                     want_rows, distance, rows=K)
+    _assert_partials(
+        tm.frame_metrics_rows_packed(T(packed), t[1], t[2], W, RAD, TOL,
+                                     distance),
+        jm.frame_metrics_rows_packed(jnp.asarray(packed), j[1], j[2], W, RAD,
+                                     TOL, distance), distance, rows=K)
+    want_chunk = jm.frame_metrics_chunk(*j, jnp.asarray(fv), RAD, TOL,
+                                        distance)
+    _assert_partials(tm.frame_metrics_chunk(*t, T(fv), RAD, TOL, distance),
+                     want_chunk, distance)
+    _assert_partials(
+        tm.frame_metrics_chunk_packed(T(packed), t[1], t[2], T(fv), W, RAD,
+                                      TOL, distance),
+        jm.frame_metrics_chunk_packed(jnp.asarray(packed), j[1], j[2],
+                                      jnp.asarray(fv), W, RAD, TOL, distance),
+        distance)
+    assert float(want_rows["n_hit"][0]) > 0
+    assert 0 < float(want_rows["gt_covered"][0]) < float(want_rows["gt_total"][0])
+
+
+def test_metrics_and_votes_chunk():
+    fv = np.array([1.0, 1.0], np.float32)
+    wp, wv = jm._metrics_and_votes_chunk(
+        jnp.asarray(IDS), jnp.asarray(VU), jnp.asarray(KEEP), jnp.asarray(fv),
+        RAD, TOL, "chebyshev", "nearest")
+    gp, gv = tm._metrics_and_votes_chunk(T(IDS), T(VU), T(KEEP), T(fv), RAD,
+                                         TOL, "chebyshev", "nearest")
+    _assert_partials(gp, wp, "chebyshev")
+    np.testing.assert_array_equal(N(gv)[KEEP], np.asarray(wv)[KEEP])
+
+
+@pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])
+def test_frame_metrics_host_equals_jax_module(distance):
+    for k in range(K):
+        want = jm.frame_metrics_host(MASKS[k], VU[k], KEEP[k], RAD, TOL,
+                                     distance)
+        got = tm.frame_metrics_host(MASKS[k], VU[k], KEEP[k], RAD, TOL,
+                                    distance)
+        assert got == want
+    # and the tensor path's Chebyshev partials equal the host mirror's
+    if distance == "chebyshev":
+        dev = tm.frame_metrics(T(MASKS[0]), T(VU[0]), T(KEEP[0]), RAD, TOL)
+        host = tm.frame_metrics_host(MASKS[0], VU[0], KEEP[0], RAD, TOL)
+        assert {k2: float(v) for k2, v in dev.items()} == host
+
+
+def test_instance_votes_host_equals_jax_module():
+    for k in range(K):
+        np.testing.assert_array_equal(
+            tm.instance_votes_host(IDS[k], VU[k], KEEP[k], TOL),
+            jm.instance_votes_host(IDS[k], VU[k], KEEP[k], TOL))
+
+
+def test_instance_association_and_reduce_metrics():
+    rng = np.random.default_rng(5)
+    mi = rng.integers(0, 9, 400)
+    gi = np.where(rng.random(400) < 0.3, 0, (mi % 4) + 1 + (rng.random(400) < 0.2))
+    for vis in (None, {1, 2, 3, 4, 5, 6}):
+        assert (tm.instance_association(mi, gi, vis)
+                == jm.instance_association(mi, gi, vis))
+    assert tm.instance_association([], []) == jm.instance_association([], [])
+    parts = [tm.frame_metrics_host(MASKS[k], VU[k], KEEP[k], RAD, TOL)
+             for k in range(K)]
+    assert tm.reduce_metrics(parts) == jm.reduce_metrics(parts)
+    empty = dict.fromkeys(KEYS, 0.0)
+    got, want = tm.reduce_metrics([empty]), jm.reduce_metrics([empty])
+    assert np.isnan(got.pop("SRE")) and np.isnan(want.pop("SRE"))
+    assert got == want
+
+
+def test_frame_instance_pairs():
+    inst = np.arange(P) % 11
+    wm, wg = jm.frame_instance_pairs(IDS[0], VU[0], KEEP[0], inst, TOL)
+    gm, gg = tm.frame_instance_pairs(IDS[0], VU[0], KEEP[0], inst, TOL,
+                                     device="cpu")
+    np.testing.assert_array_equal(gm, wm)
+    np.testing.assert_array_equal(gg, wg)
+
+
+@pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])
+@pytest.mark.parametrize("k1", [None, 256])
+def test_eval_chunk_build_then_serve(distance, k1):
+    """The fused chunk on a small synthetic scene: build and serve give
+    equal outputs, equal to the JAX build's under keep (partials exact but
+    the Euclidean sre_sum), and the derived fields are the JAX fields."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(2, 6, P)
+    valid = rng.random(P) < 0.9
+    A = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    B = np.zeros((K, C, 3, 4), np.float32)
+    for k in range(K):
+        for c in range(C):
+            B[k, c] = [[40 + 3 * c, 0, W / 2, k], [0, 40, H / 2, c], [0, 0, 1, 0]]
+    fvb = np.array([True, True])
+    lo, hi = np.full(3, -0.8, np.float32), np.array([0.8, 0.8, 10], np.float32)
+    geo = (W, H, lo, hi, k1, RAD, TOL, distance)
+    jargs = [jnp.asarray(a) for a in (pts, valid, A, B, fvb, IDS)]
+    targs = [T(a) for a in (pts, valid, A, B, fvb, IDS)]
+    want = jm._eval_chunk_build(*jargs, *geo, "nearest", True)
+    got = tm._eval_chunk_build(*targs, *geo, "nearest", True)
+    keep = N(got[2])
+    np.testing.assert_array_equal(keep, np.asarray(want[2]))
+    assert keep.sum() > 100
+    _assert_partials(got[0], want[0], distance)
+    np.testing.assert_array_equal(N(got[1])[keep], np.asarray(want[1])[keep])
+    if k1 is not None:
+        live = keep.any(1)
+        np.testing.assert_array_equal(N(got[3])[live], np.asarray(want[3])[live])
+    for i in (4, 5, 6):   # dist field, packed mask, vote field
+        np.testing.assert_array_equal(N(got[i]), np.asarray(want[i]))
+    served = tm._eval_chunk_serve(*targs[:5], got[4], got[5], got[6], *geo)
+    for key in KEYS:
+        assert torch.equal(served[0][key], got[0][key])
+    assert torch.equal(served[1].view(torch.int16), got[1].view(torch.int16))
+    assert torch.equal(served[2], got[2])
+    assert (served[3] is None) if k1 is None else torch.equal(served[3], got[3])

@@ -327,3 +327,56 @@ def test_concat_camera_grid_matches():
                                   jvideo.concat_camera_grid(imgs))
     out = np.empty((4, 9, 3), np.uint8)
     assert tvideo.concat_camera_grid(imgs, out=out) is out
+
+
+def test_frame_cache_survives_short_pwrites(tmp_path, monkeypatch):
+    """os.pwrite may land fewer bytes than it was given; the store writes on
+    until the whole slot is on disk, and only then marks it valid."""
+    real = os.pwrite
+    calls = []
+
+    def short(fd, buf, offset):
+        view = memoryview(buf)
+        calls.append(len(view))
+        return real(fd, view[:max(1, len(view) // 3)], offset)
+
+    monkeypatch.setattr(tframe_cache.os, "pwrite", short)
+    cache = tframe_cache.FrameCache(tmp_path, 2, 2, (5, 7), "k",
+                                    async_writes=False, name="gt_ids",
+                                    dtype=np.uint16, channels=0)
+    img = np.arange(35, dtype=np.uint16).reshape(5, 7) * 1000
+    cache.put(1, 1, img)
+    assert len(calls) > 2 and cache.writable
+    monkeypatch.undo()
+    reader = tframe_cache.FrameCache(tmp_path, 2, 2, (5, 7), "k",
+                                     async_writes=False, name="gt_ids",
+                                     dtype=np.uint16, channels=0)
+    np.testing.assert_array_equal(reader.get(1, 1), img)
+    assert reader.get(0, 0) is None
+
+
+def test_frame_cache_closes_each_fd_once(tmp_path, monkeypatch):
+    """A reopen closes the write descriptors; the finalizer must not close
+    the same numbers again, which by then may name another open file."""
+    import gc
+
+    closed = []
+    real = os.close
+
+    def close(fd):
+        closed.append(fd)
+        real(fd)
+
+    cache = tframe_cache.FrameCache(tmp_path, 2, 1, (4, 8), "k",
+                                    async_writes=False)
+    cache.put(0, 0, np.ones((4, 8, 3), np.uint8))
+    fds = [cache._data_fd, cache._valid_fd]
+    assert all(fd is not None for fd in fds)
+    monkeypatch.setattr(tframe_cache.os, "close", close)
+    cache._open()
+    assert sorted(closed) == sorted(fds)
+    cache.put(1, 0, np.ones((4, 8, 3), np.uint8))
+    fds2 = [cache._data_fd, cache._valid_fd]
+    del cache
+    gc.collect()
+    assert sorted(closed) == sorted(fds + fds2)

@@ -221,6 +221,49 @@ _CHILD_VALIDATE_CONVERT = textwrap.dedent("""
 """)
 
 
+# jax and the JAX package both unimportable: ground-truth masks from the
+# port's fixture, then map evaluation through the script's entry point (the
+# resident device path on CPU tensors, then the host backend) and through
+# the batch evaluator
+_CHILD_MAP_EVAL = textwrap.dedent("""
+    import io, json, os, sys, tempfile
+    from contextlib import redirect_stdout
+    sys.modules["jax"] = None
+    sys.modules["cama_tpu"] = None
+    import tomllib
+    from importlib import import_module
+    from cama_tpu_torch.eval import map_metrics
+    from cama_tpu_torch.io.fixture import add_instance_masks, make_fixture_clip
+    from cama_tpu_torch.pipeline import ClipPipeline
+
+    with open(os.path.join(sys.argv[1], "pyproject.toml"), "rb") as f:
+        entry = tomllib.load(f)["project"]["scripts"]["cama-tpu-torch-map-eval"]
+    mod, fn = entry.split(":")
+    main = getattr(import_module(mod), fn)
+    assert main is map_metrics.main
+
+    clip = make_fixture_clip(tempfile.mkdtemp(), n_frames=3,
+                             with_images=False)
+    add_instance_masks(clip)
+    outs = []
+    for extra in ([], ["--backend", "host"]):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            main(["--clip", clip, "--device", "cpu", "--instances", *extra])
+        outs.append(json.loads(buf.getvalue()))
+    assert outs[0]["frames_evaluated"] == 2 and outs[0]["precision"] == 1.0
+    assert all(abs(outs[0][k] - outs[1][k]) <= 1e-4 for k in outs[0])
+    pipes = [ClipPipeline(clip_path=clip, chunk=2, device="cpu")]
+    batch = map_metrics.MapEvaluator().evaluate_scene_batch(pipes)
+    assert batch[0]["frames_evaluated"] == 2
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("MAP_EVAL_OK")
+""")
+
+
 def _run_child(code, cwd, *argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -267,6 +310,12 @@ def test_validate_and_converting_cli_without_jax_or_cama_tpu(tmp_path):
     assert "VALIDATE_CONVERT_OK" in proc.stdout
 
 
+def test_map_eval_without_jax_or_cama_tpu(tmp_path):
+    proc = _run_child(_CHILD_MAP_EVAL, tmp_path, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "MAP_EVAL_OK" in proc.stdout
+
+
 def _port_sources():
     """Every Python file of the port and chip_smoke.py, by path."""
     pkg = os.path.join(REPO, "cama_tpu_torch")
@@ -291,7 +340,9 @@ def test_port_sources_never_load_cama_tpu():
     assert not offenders, offenders
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"chip_smoke.py", "cama_tpu_torch/validate.py",
-            "cama_tpu_torch/convert/nuscenes.py"} <= scanned
+            "cama_tpu_torch/convert/nuscenes.py",
+            "cama_tpu_torch/eval/__init__.py",
+            "cama_tpu_torch/eval/map_metrics.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -313,5 +364,6 @@ def test_port_sources_never_import_jax():
     assert not offenders, offenders
     assert {"pipeline.py", "ops/pallas_project.py", "ops/paint.py",
             "tools/bench_kernels.py", "validate.py", "convert/geom.py",
-            "convert/vecmap.py", "convert/nuscenes.py"} <= scanned, \
+            "convert/vecmap.py", "convert/nuscenes.py", "eval/__init__.py",
+            "eval/map_metrics.py"} <= scanned, \
         sorted(scanned)
