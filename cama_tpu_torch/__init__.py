@@ -5,7 +5,8 @@ It imports nothing of cama_tpu: the host code it needs is carried as
 test-pinned copies (tests/test_torch_host.py), and the device path is its
 own:
 
-  se3.py                SE(3) pose algebra and pose seek (NumPy float64)
+  se3/                  SE(3) pose algebra, trajectory codecs, Trajectory
+                        and pose seek (NumPy float64)
   profiling.py          per-phase wall-clock timers
   native/               the C++ mosaic compositor (g++, ctypes)
   io/clip.py            clip reader
@@ -24,8 +25,15 @@ own:
   ops/paint.py          the max-paint probe kernel's wrapper
   csrc/*.cu             the hand-written kernels (sm_90a), built by _build.py
   pipeline.py           ClipPipeline: the raster_kernel lanes -> videos
+  eval/map_metrics.py   map evaluation (SRE, precision / recall / F1)
+  eval/pose_metrics.py  KITTI-style pose evaluation (host NumPy)
+  aggregate/lidar.py    LiDAR aggregation (the transform on the device)
+  aggregate/site.py     CAMAv2 sites: Sim(3) estimate, refinement by Adam
+                        through autograd, chamfer dedupe, member videos
+  validate.py           per-path pixel agreement against the exact lane
   cli.py                python -m cama_tpu_torch.cli --config config.yaml
   tools/bench_kernels.py  kernel-strategy measurements on the card
+  tools/fused_cases.py, tools/site_cases.py  seeded inputs for the checks
 
 This package imports torch and never jax, even where jax is installed.
 """

@@ -5,7 +5,9 @@ The kernels are plain C entry points (csrc/*.cu, no PyTorch headers), so
 nvcc builds each in seconds.  At first use every csrc/*.cu is compiled to
 an object, one nvcc process per source, all started together, and the
 objects are linked into one library in build/cama_tpu_torch/ at the
-repository root.  The library is named by a hash of every source and header
+repository root, or, when that directory cannot be created or written (an
+installed, read-only copy), in a per-user cache directory (`build_dir`).
+The library is named by a hash of every source and header
 and of the flags, so an edited source is rebuilt and a stale library is
 never loaded.  Nothing here runs at import time.
 """
@@ -38,6 +40,29 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def user_cache_dir():
+    """$XDG_CACHE_HOME/cama_tpu_torch, else ~/.cache/cama_tpu_torch."""
+    root = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return os.path.join(root, "cama_tpu_torch")
+
+
+def build_dir():
+    """Where the kernels and the host compositor are built: BUILD_DIR
+    beside the package when it can be created and written, else the
+    per-user cache directory.  Raises when neither can."""
+    tried = []
+    for path in (BUILD_DIR, user_cache_dir()):
+        try:
+            os.makedirs(path, exist_ok=True)
+        except OSError as e:
+            tried.append(f"{path}: {e}")
+            continue
+        if os.access(path, os.W_OK):
+            return path
+        tried.append(f"{path}: not writable")
+    raise RuntimeError("no writable build directory: " + "; ".join(tried))
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -57,14 +82,13 @@ def library_path():
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libcama_{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"libcama_{digest.hexdigest()[:16]}.so")
 
 
 def _compile(so):
     """One nvcc per source in parallel, then one link into `so`."""
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(so)) as tmp:
         jobs = []
         for src in sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")

@@ -11,8 +11,10 @@ scenes of one output size are written together through
 MultiScenePipeline, as main.py does; otherwise one after another.  A scene
 with no attribute.json yet is converted first by this package's
 NuScenesConverter (convert/nuscenes.py; it needs the nuScenes devkit, like
-main.py).  Not supported yet, and reported as a failure: the `sites:`
-aggregation block.
+main.py).  The optional `sites:` block merges groups of scenes into CAMAv2
+sites (aggregate/site.py) on the same device: per site, the merged map
+(optionally refined), `<site>_labels.json` and one site-merged overlay video
+per member clip.
 """
 from __future__ import annotations
 
@@ -86,13 +88,15 @@ def run(configs, device="cuda"):
 
     state = {"converter": None}  # built at the first unconverted scene
     failures = []
-    to_write = []  # (scene_name, pipeline, {source: video_path})
+    prepared = []  # (scene_name, pipeline, {source: video_path})
     for scene_name in scene_names:
         item = _isolated(scene_name, failures, _prepare_scene, configs,
                          scene_name, output_dir, output_video_dir, device,
                          state)
-        if item is not None and item[2]:
-            to_write.append(item)
+        if item is not None:
+            prepared.append(item)
+    # a scene without videos of its own stays prepared: a site may name it
+    to_write = [item for item in prepared if item[2]]
     if configs.get("batch_scenes", True) and len(to_write) > 1:
         failures += _write_batched(configs, to_write, first_frame_cb)
     else:
@@ -100,8 +104,8 @@ def run(configs, device="cuda"):
             _isolated(item[0], failures, _write_scene_videos, configs, *item,
                       first_frame_cb(item[0]))
     if configs.get("sites"):
-        failures.append(("sites", "site aggregation is not supported by "
-                                  "cama_tpu_torch yet"))
+        failures += _run_sites(configs, prepared, output_dir,
+                               output_video_dir, device)
     if failures:
         print(f"{len(failures)} scene(s) failed: {failures}")
     return failures
@@ -184,6 +188,62 @@ def _write_batched(configs, items, first_frame_cb):
                   f"({total / max(dt, 1e-9):.1f} fps, scene-batched)")
 
         _isolated(names, failures, write_group)
+    return failures
+
+
+def _run_sites(configs, prepared, output_dir, output_video_dir, device):
+    """The `sites:` config block: each entry merges its member scenes' maps
+    into one site (optionally refined), writes `<site>_labels.json` and a
+    site-merged overlay video per member clip, on `device`.  Returns
+    failures."""
+    from cama_tpu_torch.config import normalize_site_entry
+
+    failures = []
+    by_name = {name: pipe for name, pipe, _ in prepared}
+    seen_names = set()
+    for i, site_cfg in enumerate(configs["sites"]):
+        entry = normalize_site_entry(site_cfg, i, len(configs["sites"]))
+        name, members, refine = entry["name"], entry["scenes"], entry["refine"]
+        if name in seen_names:
+            failures.append((f"site:{name}",
+                             f"duplicate site name {name!r}: outputs "
+                             f"({name}_labels.json, member videos) would "
+                             f"overwrite each other — give each site a "
+                             f"unique 'name'"))
+            continue
+        seen_names.add(name)
+
+        def run_site(name=name, members=members, refine=refine):
+            from cama_tpu_torch.aggregate.site import Site
+
+            missing = [m for m in members if m not in by_name]
+            if missing:
+                raise ValueError(f"site {name!r}: scenes not prepared: {missing}")
+            clips = [os.path.join(output_dir, m) for m in members]
+            print(f"[{name}] aggregating {len(members)} scenes on {device}"
+                  + (" (+refine)" if refine else ""))
+            # the members' scenes come from the pipelines built above, so no
+            # member is lifted again; member videos take the scenes' lane
+            site_cfgs = dict(configs.get("cama_configs") or {})
+            if not site_cfgs.get("raster_kernel"):
+                site_cfgs["raster_kernel"] = "auto"
+            site = Site.from_clips(
+                clips, configs=site_cfgs, refine=refine, device=device,
+                scenes=[by_name[m].scene for m in members])
+            out_json = os.path.join(output_video_dir, f"{name}_labels.json")
+            site.save_labels_json(out_json)
+            print(f"  merged map ({len(site.instances)} elements) -> {out_json}")
+            t0 = time.perf_counter()
+            n = 0
+            for member, frames in site.member_overlay_videos(
+                    output_video_dir, prefix=name,
+                    preset=configs.get("video_preset")):
+                print(f"  [{name}] {frames} frames -> {member}")
+                n += frames
+            dt = time.perf_counter() - t0
+            print(f"  {n} site video-frames in {dt:.1f}s")
+
+        _isolated(f"site:{name}", failures, run_site)
     return failures
 
 

@@ -1,6 +1,6 @@
-"""Reader for the CAMA on-disk clip format: the part of
-cama_tpu/io/clip.py's ClipReader that scene compilation and the overlay
-path read (timestamp tables, sensor file iterators, calibration graph,
+"""Reader for the CAMA on-disk clip format: cama_tpu/io/clip.py's
+ClipReader (timestamp tables, sensor file iterators, LiDAR sweeps, the
+IMU / GNSS / wheel streams and their TUM poses, calibration graph,
 odometry, label maps).
 
 A copy, because cama_tpu.io.clip imports cama_tpu.se3.core, which imports
@@ -15,7 +15,7 @@ from collections import defaultdict, deque
 
 import numpy as np
 
-from cama_tpu_torch.se3 import inv_se3
+from cama_tpu_torch.se3 import from_euler, inv_se3
 
 
 class ClipReader:
@@ -62,6 +62,65 @@ class ClipReader:
             ts_list = ts_list[start_idx:end_idx]
         for ts in ts_list:
             yield ts, self.sensor_filepath(sensor, ts, ext)
+
+    def iter_lidar(self, start_idx=None, end_idx=None, deskewed=False):
+        """Yield (timestamp_s, points[N, 6] float64: x y z intensity ring ts)."""
+        sensor = "deskewed_lidar_top" if deskewed else "lidar_top"
+        for ts, path in self.iter_sensor_files("lidar_top", "bin", sync=True,
+                                               start_idx=start_idx, end_idx=end_idx):
+            if deskewed:
+                path = path.replace("lidar_top", sensor)
+            pts = np.fromfile(path, dtype=np.float64).reshape(-1, 6)
+            yield ts / 1000.0, pts
+
+    def _sensor_json(self, dirname):
+        with open(os.path.join(self.clip_path, dirname, "data.json"), "r") as f:
+            return json.load(f)
+
+    def iter_imu(self):
+        """Yield (timestamp_s, frame_dict) from IMU/data.json keyed by the
+        unsync ms table."""
+        data = self._sensor_json("IMU")
+        for ts in self.attribute["unsync"]["IMU"]:
+            yield float(ts) / 1000.0, data[str(ts)]
+
+    def iter_gnss(self):
+        """UB482 GNSS frames."""
+        data = self._sensor_json("UB482")
+        for ts in self.attribute["unsync"]["UB482"]:
+            yield float(ts) / 1000.0, data[str(ts)]
+
+    def iter_wheel(self, sync=True):
+        """Wheel odometry frames."""
+        data = self._sensor_json("wheel")
+        for ts in self.attribute["sync" if sync else "unsync"]["wheel"]:
+            yield float(ts) / 1000.0, data[str(ts)]
+
+    def gnss_tum(self):
+        """GNSS poses as a TUM array, supporting both reference JSON schemas
+        (v1 list-valued, v2 dict-valued)."""
+        rows = []
+        for ts, g in self.iter_gnss():
+            pos, ori = g["position"], g["orientation"]
+            if isinstance(pos, dict) or "x" in pos:
+                rows.append([ts, pos["x"], pos["y"], pos["z"],
+                             ori["x"], ori["y"], ori["z"], ori["w"]])
+            else:
+                rows.append([ts, pos[0], pos[1], pos[2], ori[0], ori[1], ori[2], ori[3]])
+        return np.asarray(rows)
+
+    def wheel_tum(self, sync=False):
+        """Wheel odometry as TUM, v1 (roll/pitch/yaw) or v2 (yaw-only, z=0)
+        schemas."""
+        rows = []
+        for ts, w in self.iter_wheel(sync=sync):
+            if "roll" in w:
+                q = from_euler("XYZ", np.array([w["roll"], w["pitch"], w["yaw"]]))
+                rows.append([ts, w["x"], w["y"], w["z"], q[0], q[1], q[2], q[3]])
+            else:
+                q = from_euler("XYZ", np.array([0.0, 0.0, w["yaw"]]))
+                rows.append([ts, w["x"], w["y"], 0.0, q[0], q[1], q[2], q[3]])
+        return np.asarray(rows)
 
     def iter_camera(self, camera="camera_front", start_idx=None, end_idx=None):
         """Yield (ts_s, image BGR) decoded camera frames (needs cv2)."""
@@ -141,6 +200,20 @@ class ClipReader:
         for i in range(len(path) - 1):
             out = self._direct_extrinsic(path[i], path[i + 1]) @ out
         return out
+
+    def all_sensors(self):
+        names = []
+        for key in self.attribute["calibration"]:
+            names += key.split("_2_")
+        return sorted(set(names))
+
+    def intrinsic(self, sensor):
+        """Deprecated (K, d) tuple variant."""
+        from warnings import warn
+
+        warn("intrinsic() is deprecated, use intrinsics() instead")
+        raw = self.attribute["calibration"][sensor]
+        return np.asarray(raw["K"]), np.asarray(raw["d"])
 
     def intrinsics(self, sensor):
         """dict with K [3,3], d, width, height, hfov."""

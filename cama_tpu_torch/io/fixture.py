@@ -1,12 +1,13 @@
 """Synthetic fixture clip in the CAMA on-disk format, without jax.
 
-A copy of cama_tpu/io/fixture.py's `make_fixture_clip` for the options the
-overlay path uses (camera images optional; no LiDAR, auxiliary sensors,
-site frames or dropped poses): a vehicle drives ~3 m/s along +x near world
-(-240, -240) past three lane markings, two road edges and a crosswalk.  It
-writes attribute.json, odometry, both label maps and the height grid, and
-optionally per-camera JPEGs.  For the same arguments it writes the same
-bytes as the original (tests/test_torch_host.py).  `add_instance_masks`
+A copy of cama_tpu/io/fixture.py's `make_fixture_clip`: a vehicle drives
+~3 m/s along +x near world (-240, -240) past three lane markings, two road
+edges and a crosswalk.  It writes attribute.json, odometry, both label maps
+and the height grid, and optionally per-camera JPEGs, LiDAR sweeps of a
+static world, the IMU / GNSS / wheel streams, a clip in its own misaligned
+SfM frame (the site scenario) and dropped SfM poses.  For the same
+arguments it writes the same bytes as the original
+(tests/test_torch_host.py, tests/test_torch_aggregate.py).  `add_instance_masks`
 adds the ground-truth instance masks map evaluation reads, again the same
 bytes as the original's (tests/test_torch_eval_scene.py).
 """
@@ -32,9 +33,6 @@ CAMERA_YAWS_DEG = {
     "camera_rear": 180.0,
 }
 GRID_SIZE = 1200  # BEV height grid
-FPS = 10.0
-T0_MS = 1600000000000  # clip start, unix milliseconds
-IMAGE_SIZE = (1600, 900)  # (width, height) of the camera images
 
 
 def _cam2chassis(camera_name):
@@ -125,14 +123,48 @@ def _synth_image(camera, frame_idx, width, height):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
-                      with_images=True, label_span=(-278.0, -202.0)):
-    """Build a clip directory under root/scene_name and return its path.
-    with_images writes one JPEG per camera and frame (needs cv2)."""
+def make_fixture_clip(
+    root,
+    scene_name="scene-fixture",
+    n_frames=12,
+    fps=10.0,
+    with_images=True,
+    with_lidar=True,
+    drop_scmv_rows=(),
+    t0_ms=1600000000000,
+    image_size=(1600, 900),
+    seed=0,
+    traj_t_offset=0.0,
+    world_sim3=None,
+    flat_height=False,
+    with_aux_sensors=False,
+    label_span=(-278.0, -202.0),
+):
+    """Build a clip directory under root/scene_name. Returns its path.
+
+    traj_t_offset shifts the trajectory parameterization (seconds) so several
+    clips cover overlapping road portions at different wall-clock times (the
+    CAMAv2 site scenario).  world_sim3 = dict(yaw_deg, tx, ty) expresses this
+    clip's SfM frame as an SE(2)-misaligned copy of the world frame: scmv
+    poses AND CAMA labels are written in that frame (wigo stays global UTM),
+    which site aggregation must undo.  flat_height zeroes the BEV height grid
+    (keeps cross-clip z consistent for site tests)."""
+    rng = np.random.default_rng(seed)
+
+    if world_sim3 is None:
+        M_sfm = np.eye(4)
+    else:
+        yaw = np.deg2rad(world_sim3.get("yaw_deg", 0.0))
+        M_sfm = np.eye(4)
+        M_sfm[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        M_sfm[0, 3] = world_sim3.get("tx", 0.0)
+        M_sfm[1, 3] = world_sim3.get("ty", 0.0)
+
+    def pose_at(t_rel):
+        return _pose_chassis2world(np.asarray(t_rel) + traj_t_offset)
     clip = os.path.join(str(root), scene_name)
     os.makedirs(clip, exist_ok=True)
-    width, height = IMAGE_SIZE
-    fps, t0_ms = FPS, T0_MS
+    width, height = image_size
 
     # ---- timestamps (ms ints) ----
     frame_ms = {}
@@ -141,6 +173,12 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
         frame_ms[cam] = [t0_ms + round(1000 * k / fps) + cam_offsets[cam] for k in range(n_frames)]
     lidar_period = round(500 / fps)  # 2x camera rate
     frame_ms["lidar_top"] = [t0_ms + lidar_period * k + 5 for k in range(2 * n_frames)]
+    if with_aux_sensors:
+        # IMU 100 Hz, GNSS 10 Hz, wheel ~33 Hz
+        span = round(1000 * n_frames / fps)
+        frame_ms["IMU"] = [t0_ms + 10 * k for k in range(span // 10)]
+        frame_ms["UB482"] = [t0_ms + 100 * k + 1 for k in range(span // 100)]
+        frame_ms["wheel"] = [t0_ms + 30 * k + 2 for k in range(span // 30)]
 
     unsync = {s: list(v) for s, v in frame_ms.items()}
     # sync: nearest within 40 ms of camera_front
@@ -194,7 +232,7 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
     os.makedirs(od, exist_ok=True)
     all_ms = sorted(ms for tss in unsync.values() for ms in tss)
     t_rel = (np.asarray(all_ms, dtype=np.float64) - t0_ms) / 1000.0
-    T_wc = _pose_chassis2world(t_rel)
+    T_wc = pose_at(t_rel)
     quat = matrix_to_quat(T_wc[:, :3, :3])
     tum = np.concatenate(
         [np.asarray(all_ms, dtype=np.float64)[:, None] / 1000.0, T_wc[:, :3, 3], quat], axis=1
@@ -206,19 +244,33 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
 
     # scmv: camera_front SfM poses (cam2world) at sync camera_front times
     cam_ms = np.asarray(sync["camera_front"], dtype=np.float64)
-    T_w_cam = _pose_chassis2world((cam_ms - t0_ms) / 1000.0) @ _cam2chassis("camera_front")
+    T_cam2ch = _cam2chassis("camera_front")
+    T_w_cam = M_sfm @ pose_at((cam_ms - t0_ms) / 1000.0) @ T_cam2ch
+    keep = np.ones(len(cam_ms), dtype=bool)
+    for i in drop_scmv_rows:
+        if 0 <= i < len(keep):
+            keep[i] = False
     scmv = np.concatenate(
         [cam_ms[:, None] / 1000.0, T_w_cam[:, :3, 3], matrix_to_quat(T_w_cam[:, :3, :3])],
         axis=1,
-    )
+    )[keep]
     np.savetxt(os.path.join(od, "scmv_camera_front.txt"), scmv)
 
     # ---- maps ----
     maps_dir = os.path.join(clip, "maps")
     os.makedirs(maps_dir, exist_ok=True)
-    np.save(os.path.join(maps_dir, "vision_road_mlp_ft.npy"), _height_grid())
-    cama_labels = [_label_record(cls, _world_xy_to_label_px(w))
-                   for cls, w in _world_polylines(label_span)]
+    # flat grid sits at the chassis base height so cama z matches the
+    # nuScenes path's z=0-in-center-frame plane (world z ~= 0.5)
+    grid = np.full((GRID_SIZE, GRID_SIZE), 0.5, np.float32) if flat_height else _height_grid()
+    np.save(os.path.join(maps_dir, "vision_road_mlp_ft.npy"), grid)
+
+    def to_sfm_px(w):
+        wh = np.concatenate([w, np.zeros((len(w), 1)), np.ones((len(w), 1))], axis=1)
+        return _world_xy_to_label_px((M_sfm @ wh.T).T[:, :2])
+
+    cama_labels = [
+        _label_record(cls, to_sfm_px(w)) for cls, w in _world_polylines(label_span)
+    ]
     with open(os.path.join(maps_dir, "map_labels.json"), "w") as f:
         json.dump(cama_labels, f)
 
@@ -230,6 +282,7 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
     nusc_labels = []
     for cls, w in _world_polylines(label_span):
         p = np.concatenate([w, np.zeros((len(w), 1)), np.ones((len(w), 1))], axis=1)
+        # offset world like wigo_offset does, then into center-pose frame
         p[:, :3] -= tum[mid, 1:4]
         q = (T_inv @ p.T).T
         nusc_labels.append(_label_record(cls, q[:, :2]))
@@ -247,6 +300,68 @@ def make_fixture_clip(root, scene_name="scene-fixture", n_frames=12,
                 cv2.imwrite(
                     os.path.join(cam_dir, f"{ms}.jpg"), _synth_image(cam, k, width, height)
                 )
+
+    # ---- aux sensor json (IMU / GNSS / wheel) ----
+    if with_aux_sensors:
+        def pose_for(ms):
+            return pose_at((np.asarray(ms) - t0_ms) / 1000.0)
+
+        imu = {}
+        for ms in unsync["IMU"]:
+            imu[str(ms)] = {
+                "gyro": (0.01 * rng.normal(size=3)).tolist(),
+                "accel": [0.0, 0.0, 9.81],
+            }
+        os.makedirs(os.path.join(clip, "IMU"), exist_ok=True)
+        with open(os.path.join(clip, "IMU", "data.json"), "w") as f:
+            json.dump(imu, f)
+
+        gnss = {}
+        for ms in unsync["UB482"]:
+            T = pose_for(ms)[0]
+            q = matrix_to_quat(T[:3, :3])
+            gnss[str(ms)] = {  # v2 ("tat") schema: dict-valued
+                "position": {"x": T[0, 3], "y": T[1, 3], "z": T[2, 3]},
+                "orientation": {"x": q[0], "y": q[1], "z": q[2], "w": q[3]},
+            }
+        os.makedirs(os.path.join(clip, "UB482"), exist_ok=True)
+        with open(os.path.join(clip, "UB482", "data.json"), "w") as f:
+            json.dump(gnss, f)
+
+        wheel = {}
+        for ms in unsync["wheel"]:
+            T = pose_for(ms)[0]
+            yaw = float(np.arctan2(T[1, 0], T[0, 0]))
+            wheel[str(ms)] = {"x": T[0, 3], "y": T[1, 3], "yaw": yaw}  # v2 schema
+        os.makedirs(os.path.join(clip, "wheel"), exist_ok=True)
+        with open(os.path.join(clip, "wheel", "data.json"), "w") as f:
+            json.dump(wheel, f)
+
+    # ---- lidar ----
+    if with_lidar:
+        lid_dir = os.path.join(clip, "lidar_top")
+        os.makedirs(lid_dir, exist_ok=True)
+        n_pts = 2048
+        # world-frame content: ground plane + a wall along the road edge
+        gx = rng.uniform(-275, -205, n_pts)
+        gy = rng.uniform(-250, -230, n_pts)
+        gz = np.where(gy < -246.0, rng.uniform(0, 2.5, n_pts), 0.0)
+        world_pts = np.stack([gx, gy, gz, np.ones(n_pts)], axis=-1)
+        T_l_inv = inv_se3(T_lidar)
+        for ms in unsync["lidar_top"]:
+            T_chassis = pose_at((ms - t0_ms) / 1000.0)[0]
+            pts_l = (T_l_inv @ inv_se3(T_chassis) @ world_pts.T).T[:, :3]
+            rec = np.concatenate(
+                [
+                    pts_l,
+                    rng.uniform(0, 255, (n_pts, 1)),
+                    np.zeros((n_pts, 1)),
+                    np.full((n_pts, 1), ms / 1000.0),
+                ],
+                axis=1,
+            ).astype(np.float64)
+            rec.tofile(os.path.join(lid_dir, f"{ms}.bin"))
+
     return clip
 
 

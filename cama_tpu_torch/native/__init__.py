@@ -2,8 +2,9 @@
 and bound with ctypes.
 
 A copy of cama_tpu/native/__init__.py's compositing half.  The library is
-built into build/cama_tpu_torch/ at the repository root, named by a hash of
-the source, and never next to the source.  Without a toolchain, or when the
+built into build/cama_tpu_torch/ at the repository root, or into a per-user
+cache directory when that one cannot be written (_build.build_dir), named
+by a hash of the source, and never next to the source.  Without a toolchain, or when the
 build fails, `available()` is False and the pipeline composites with NumPy
 (byte-identical, slower).
 """
@@ -17,7 +18,7 @@ import threading
 
 import numpy as np
 
-from cama_tpu_torch._build import BUILD_DIR
+from cama_tpu_torch._build import build_dir
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "compositor.cpp")
 
@@ -29,20 +30,23 @@ _tried = False
 def library_path():
     with open(_SRC, "rb") as f:
         stamp = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libcompositor_{stamp}.so")
+    return os.path.join(build_dir(), f"libcompositor_{stamp}.so")
 
 
 def _build_and_load():
     """Build compositor.cpp into its content-addressed library (once) and
-    dlopen it; None when the toolchain or the build is unavailable."""
-    so_path = library_path()
+    dlopen it; None when the toolchain, a writable build directory or the
+    build is unavailable."""
+    try:
+        so_path = library_path()
+    except RuntimeError:
+        return None
     if os.path.exists(so_path):
         try:
             return ctypes.CDLL(so_path)
         except OSError:  # corrupt or foreign library: rebuilt over it
             pass
     try:
-        os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = so_path + f".tmp{os.getpid()}"
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC,
                         "-o", tmp], check=True, capture_output=True,

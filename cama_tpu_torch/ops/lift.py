@@ -1,8 +1,9 @@
 """2-D label -> 3-D polyline lifting (host-side scene compilation).
 
-A copy of cama_tpu/ops/lift.py, cut to what the port uses: the constants
-(map extent, crop box, colors, class names), the CAMA and nuScenes lifting
-with their helpers, and FlatPoints.  The point flattening is in
+A copy of cama_tpu/ops/lift.py: the constants (map extent, crop box,
+colors, class names), the CAMA and nuScenes lifting with their helpers,
+FlatPoints, its inverse unflatten_to_instances and the instance-map PCD /
+xyz writers.  The point flattening is in
 io/scene.py.  Bit-exact to the reference's float32 arithmetic: the same op
 order, the same float32 intermediate types, the same
 round()->uint16->clip->gather height sampling
@@ -154,3 +155,52 @@ class FlatPoints:
     @property
     def num_valid(self):
         return int(self.valid.sum())
+
+
+def save_instances_pcd(flat, pcd_path, points_override=None, keep_mask=None):
+    """Colored PCD export of an instance map (the reference MapManager's
+    save_pcd, without the open3d dependency)."""
+    from cama_tpu_torch.aggregate.lidar import save_pcd
+
+    instances = unflatten_to_instances(flat, points_override, keep_mask)
+    if not instances:
+        return save_pcd(pcd_path, np.zeros((0, 3), np.float32))
+    pts = np.concatenate([i["points"] for i in instances])
+    colors = np.concatenate([
+        np.tile(COLOR_MAPS.get(i["class"], COLOR_MAPS["Crosswalk_Line"]),
+                (len(i["points"]), 1))
+        for i in instances
+    ])
+    return save_pcd(pcd_path, pts, colors)
+
+
+def save_instances_xyz(flat, xyz_path, points_override=None, keep_mask=None):
+    """xyz text export (the reference MapManager's save_xyz)."""
+    instances = unflatten_to_instances(flat, points_override, keep_mask)
+    pts = (np.concatenate([i["points"] for i in instances])
+           if instances else np.zeros((0, 3)))
+    np.savetxt(xyz_path, pts, fmt="%.3f")
+    return xyz_path
+
+
+def unflatten_to_instances(flat, points_override=None, keep_mask=None):
+    """FlatPoints -> reference-style [{'class': str, 'points': [P,3]}] list,
+    dropping empty instances; the inverse of io.scene.flatten_instances.
+    Used by the site merge and the PCD export."""
+    pts = np.asarray(flat.points if points_override is None else points_override)
+    mask = flat.valid if keep_mask is None else (flat.valid & keep_mask)
+    out = []
+    sel = np.flatnonzero(mask)
+    if len(sel) == 0:
+        return out
+    # inst is instance-major (sorted ascending over valid entries): one pass
+    inst_sel = flat.inst[sel]
+    starts = np.flatnonzero(np.concatenate([[True], inst_sel[1:] != inst_sel[:-1]]))
+    bounds = np.concatenate([starts, [len(sel)]])
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        idx = sel[b0:b1]
+        out.append({
+            "class": flat.class_names[int(flat.cls[idx[0]])],
+            "points": pts[idx],
+        })
+    return out

@@ -257,13 +257,15 @@ def unpack_cls_2bit(packed2, width):
     return out[..., :width]
 
 
-def build_color_table(class_names):
-    """Per-class BGR color rows; any class other than "lane_marking" takes
-    the "Crosswalk_Line" color, as the reference renderer does."""
+def build_color_table(class_names, color_maps=None):
+    """Per-class BGR color rows from `color_maps` (class name -> RGB,
+    default lift.COLOR_MAPS); any class other than "lane_marking" takes the
+    "Crosswalk_Line" color, as the reference renderer does."""
+    color_maps = color_maps or COLOR_MAPS
     rows = []
     for name in class_names:
         eff = name if name == "lane_marking" else "Crosswalk_Line"
-        rows.append(COLOR_MAPS[eff][::-1])  # BGR, as cv2 draws on BGR images
+        rows.append(color_maps[eff][::-1])  # BGR, as cv2 draws on BGR images
     return np.asarray(rows, dtype=np.uint8)
 
 

@@ -388,6 +388,19 @@ def _pow2_cap(n, P):
     return min(k, max(P, 1))
 
 
+def resolve_device(device):
+    """torch.device of a 'cuda' or 'cpu' request.  'cuda' without a card
+    raises: no quiet fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 class ClipPipeline:
     def __init__(self, configs=None, clip_path=None, sources=("cama", "nuscenes"),
                  chunk=8, scene: Scene = None, raster_kernel=None,
@@ -409,13 +422,7 @@ class ClipPipeline:
                 f"unknown raster_kernel {raster_kernel!r}; expected one of "
                 f"{', '.join(map(repr, RASTER_KERNELS))}")
         self.raster_kernel = "fused" if raster_kernel == "auto" else raster_kernel
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain PyTorch versions")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = resolve_device(device)
         self.chunk = int(chunk)
         if scene is not None:
             self.scene = scene

@@ -1,17 +1,18 @@
-"""SE(3) pose algebra on the host, NumPy float64 only.
+"""Batched SE(3) / SO(3) algebra on the host, NumPy float64.
 
-Copies of the functions of cama_tpu/se3 (core.py, codec.py, trajectory.py)
-that the overlay path reads: the clip reader's extrinsic chain, the scene's
-pose chains, and the per-frame pose seek + SLERP.  cama_tpu.se3.core imports
-jax whenever it is installed, so this package carries its own NumPy branch.
-Every function does the same float64 operations in the same order as the
-original and gives the same bits (tests/test_torch_host.py).
+Copies of cama_tpu/se3/core.py's NumPy branch: every function does the same
+float64 operations in the same order as the original and gives the same
+bits (tests/test_torch_host.py, tests/test_torch_se3_pose.py).
+cama_tpu.se3.core imports jax whenever it is installed, so this package
+carries its own copy.  `rel_to_abs` also takes a torch tensor, and then
+composes on the tensor's device.
 
 Quaternion convention: scalar-last (x, y, z, w), as in the TUM files.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def inv_se3(T):
@@ -134,107 +135,95 @@ def slerp_transform(T0, T1, ratio):
     return out
 
 
-def tum_to_transforms(array):
-    """TUM rows [t x y z qx qy qz qw] -> (T [N, 4, 4] float64, timestamps [N])."""
-    array = np.asarray(array, dtype=np.float64)
-    if array.ndim == 1:
-        array = array[None]
-    assert array.shape[1] == 8, f"TUM rows need 8 columns, got {array.shape[1]}"
-    T = np.zeros((array.shape[0], 4, 4), dtype=np.float64)
-    T[:, 3, 3] = 1.0
-    T[:, :3, :3] = quat_to_matrix(array[:, 4:8])
-    T[:, :3, 3] = array[:, 1:4]
-    return T, array[:, 0].copy()
+_AXES = {"x": 0, "y": 1, "z": 2}
 
 
-def seek_indices(timestamps, queries, t_max_diff, interpolate=False):
-    """Host float64 index/ratio computation for a batch of pose seeks:
-    exact-match shortcut (|q - ts| <= 1e-9 + 1e-20*|q|, first match wins),
-    then bracketing indices + SLERP ratio (interpolate) or the nearer pose,
-    each invalid past t_max_diff.  Returns dict of [M] arrays: il, ir,
-    ratio, valid."""
-    ts = np.asarray(timestamps, dtype=np.float64).reshape(-1)
-    q = np.asarray(queries, dtype=np.float64).reshape(-1)
-    n = ts.shape[0]
+def _single_axis_quat(axis, angle):
+    zeros = np.zeros_like(angle)
+    half = angle / 2.0
+    comps = [zeros, zeros, zeros, np.cos(half)]
+    comps[axis] = np.sin(half)
+    return np.stack(comps, axis=-1)
 
-    right = np.searchsorted(ts, q, side="left")
-    left = right - 1
-    il = np.clip(left, 0, n - 1)
-    ir = np.clip(right, 0, n - 1)
 
-    tol = 1e-9 + 1e-20 * np.abs(q)
-    first = np.searchsorted(ts, q - tol, side="left")
-    i_exact = np.clip(first, 0, n - 1)
-    exact = (first < n) & (np.abs(ts[i_exact] - q) <= tol)
-
-    if interpolate:
-        # q in [ts[0] - 1e-9, ts[0]) snaps to the first segment
-        snap_front = (right == 0) & (q - ts[0] > -1e-9) & (q - ts[0] < 0)
-        left = np.where(snap_front, 0, left)
-        right = np.where(snap_front, 1, right)
-        in_range = (right < n) & (left >= 0)
-        il2 = np.clip(left, 0, n - 1)
-        ir2 = np.clip(right, 0, n - 1)
-        gap = ts[ir2] - ts[il2]
-        ok = in_range & (gap <= t_max_diff) & (gap > 0)
-        safe_gap = np.where(gap > 0, gap, 1.0)
-        ratio = (q - ts[il2]) / safe_gap
-        out_il, out_ir = il2, ir2
+def from_euler(seq, angles, degrees=False):
+    """Euler angles -> quaternion (x, y, z, w), scipy-compatible.
+    Uppercase seq = intrinsic (rotating frame), lowercase = extrinsic."""
+    angles = np.asarray(angles)
+    squeeze = angles.ndim == 1
+    angles_b = angles[None, :] if squeeze else angles
+    if degrees:
+        angles_b = angles_b * (np.pi / 180.0)
+    axes = [_AXES[c] for c in seq.lower()]
+    qs = [_single_axis_quat(ax, angles_b[..., i]) for i, ax in enumerate(axes)]
+    if seq == seq.upper():
+        q = quat_multiply(quat_multiply(qs[0], qs[1]), qs[2])
     else:
-        ldiff = np.where(left >= 0, q - ts[il], np.inf)
-        rdiff = np.where(right < n, ts[ir] - q, np.inf)
-        ok = np.minimum(ldiff, rdiff) <= t_max_diff
-        pick = np.where(ldiff < rdiff, il, ir)
-        out_il = out_ir = pick
-        ratio = np.zeros_like(q)
-
-    out_il = np.where(exact, i_exact, out_il)
-    out_ir = np.where(exact, i_exact, out_ir)
-    ratio = np.where(exact, 0.0, ratio)
-    valid = ok | exact
-    ratio = np.where(valid, ratio, 0.0)
-    return {"il": out_il, "ir": out_ir, "ratio": ratio, "valid": valid}
+        q = quat_multiply(quat_multiply(qs[2], qs[1]), qs[0])
+    return q[0] if squeeze else q
 
 
-def apply_seek(transforms, idx):
-    """Gather + SLERP the seek computed by `seek_indices`; invalid rows come
-    back as identity."""
-    T = np.asarray(transforms)
-    il, ir = np.asarray(idx["il"]), np.asarray(idx["ir"])
-    ratio = np.asarray(idx["ratio"]).astype(T.dtype)
-    valid = np.asarray(idx["valid"])
-    interp = slerp_transform(T[il], T[ir], ratio)
-    out = np.where((il == ir)[:, None, None], T[il], interp)
-    return np.where(valid[:, None, None], out, np.eye(4, dtype=T.dtype))
+def as_euler(m, seq, degrees=False):
+    """Rotation matrix [..., 3, 3] -> Euler angles for any 3-char seq
+    (uppercase = intrinsic, lowercase = extrinsic), through the duality
+    intrinsic(abc) == reversed(extrinsic(cba)).  At gimbal lock the third
+    angle is set to 0, as scipy does."""
+    m = np.asarray(m)
+    intrinsic = seq == seq.upper()
+    s = seq.lower()
+    if not intrinsic:
+        s = s[::-1]
+    i, j, k3 = _AXES[s[0]], _AXES[s[1]], _AXES[s[2]]
+    eps = 1.0 if (j - i) % 3 == 1 else -1.0
+    if s[0] == s[2]:  # proper Euler angles
+        k = 3 - i - j  # the unused axis
+        beta = np.arccos(np.clip(m[..., i, i], -1.0, 1.0))
+        safe = np.abs(np.abs(m[..., i, i]) - 1.0) > 1e-7
+        alpha = np.arctan2(m[..., j, i], -eps * m[..., k, i])
+        gamma = np.arctan2(m[..., i, j], eps * m[..., i, k])
+        lock_alpha = np.arctan2(eps * m[..., k, j], m[..., j, j])
+    else:  # Tait-Bryan angles
+        k = k3
+        sy = eps * m[..., i, k]
+        beta = np.arctan2(sy, np.sqrt(np.clip(m[..., i, i] ** 2 + m[..., i, j] ** 2,
+                                              0.0, None)))
+        safe = np.abs(np.abs(sy) - 1.0) > 1e-7
+        alpha = np.arctan2(-eps * m[..., j, k], m[..., k, k])
+        gamma = np.arctan2(-eps * m[..., i, j], m[..., i, i])
+        # at the lock the alpha/gamma coupling flips sign with the pole
+        lock_alpha = np.arctan2(np.sign(sy) * m[..., j, i], m[..., j, j])
+    alpha = np.where(safe, alpha, lock_alpha)
+    gamma = np.where(safe, gamma, np.zeros_like(gamma))
+    out = np.stack([alpha, beta, gamma], axis=-1)
+    if not intrinsic:
+        out = out[..., ::-1]
+    if degrees:
+        out = out * (180.0 / np.pi)
+    return out
 
 
-class Trajectory:
-    """Absolute poses [N, 4, 4] float64 with timestamps [N, 1]: the part of
-    cama_tpu.se3.trajectory.Trajectory that scene compilation and the frame
-    matrices read."""
+def rel_to_abs(rel):
+    """Cumulative compose: abs[0] = I, abs[n] = rel[0] @ ... @ rel[n-1];
+    [N, 4, 4] -> [N + 1, 4, 4].  A NumPy array composes in a host loop, as
+    the original's NumPy branch does; a torch tensor composes on its device
+    as a prefix product in log2(N) rounds of one batched matmul each (the
+    original's associative scan on device arrays: the same products,
+    associated differently, so equal within float rounding)."""
+    if isinstance(rel, torch.Tensor):
+        prefix, d = rel, 1
+        while d < len(prefix):
+            prefix = torch.cat([prefix[:d], prefix[:-d] @ prefix[d:]])
+            d *= 2
+        eye = torch.eye(4, dtype=rel.dtype, device=rel.device)
+        return torch.cat([eye[None], prefix])
+    rel = np.asarray(rel)
+    out = [np.eye(4, dtype=rel.dtype)]
+    for T in rel:
+        out.append(out[-1] @ T)
+    return np.stack(out)
 
-    def __init__(self):
-        self._abs = np.zeros((0, 4, 4))
-        self.timestamps = np.zeros((0, 1))
 
-    def loadarray(self, array):
-        """Load TUM rows [t x y z qx qy qz qw]."""
-        T, ts = tum_to_transforms(array)
-        self._abs, self.timestamps = T, ts[:, None]
-
-    def from_absolute_transform(self, T):
-        T = np.asarray(T, dtype=np.float64)
-        assert T.shape[-2:] == (4, 4)
-        self._abs = T
-
-    def as_transform(self, absolute=True):
-        if not absolute:
-            raise NotImplementedError("only absolute poses are kept")
-        return np.asarray(self._abs)
-
-    def normalize2center(self):
-        self._abs = inv_se3(self._abs[len(self._abs) // 2]) @ self._abs
-
-    def right_rotate(self, extrinsic):
-        assert extrinsic.shape == (4, 4)
-        self._abs = self._abs @ np.asarray(extrinsic)
+def abs_to_rel(abs_T):
+    """rel[i] = inv(abs[i+1]) @ abs[i]; [N, 4, 4] -> [N - 1, 4, 4]."""
+    abs_T = np.asarray(abs_T)
+    return inv_se3(abs_T[1:]) @ abs_T[:-1]

@@ -104,13 +104,40 @@ next to this script):
        evaluator's PhaseTimers report.  Every chunk function of the
        evaluator is wrapped to raise on a CPU tensor.
 
+  7. the CAMAv2 site path (cama_tpu_torch.aggregate), lines tagged [site]
+     and [lidar]; _chamfer_pairs, _refine_step and _transform_points are
+     wrapped to raise on a tensor off the card:
+     - two fixture clips over overlapping road, the second in a misaligned
+       SfM frame: Site.from_clips(refine=True) on the card, the Sim(3)
+       estimate against the injected one, the refinement's first and last
+       loss, the count dedupe removes; member_overlay_rasters (the merged
+       map through MultiScenePipeline on the source 'site') byte-equal to
+       each member's own ClipPipeline rasters, with fused_compact_project
+       launched on that path; cli._run_sites writing the labels and member
+       videos when ffmpeg or cv2 can write video;
+     - a seeded site at the size users run (tools/site_cases.py: 16 clips,
+       1,885 elements, 8,567 candidate pairs at tol 2.0, every clip but the
+       first perturbed by 1-1.5 deg and 0.5-0.8 m): refine_alignment(600)
+       must lower the loss below SITE_LOSS_RATIO_MAX of the first and leave
+       at most SITE_ROT_ERR_MAX_DEG and SITE_TRANS_ERR_MAX_M of the
+       perturbation (ms per step by events and on the card, launches per
+       step, peak memory); dedupe(0.5) on the card against the same code on
+       CPU tensors (a pair within 1e-5 of tol may fall either way; counted),
+       ms and pairs/s;
+     - LiDAR at nuScenes density (200 sweeps of up to 34,720 points, a
+       ragged valid mask, poses from a seed): _transform_points against its
+       host mirror (<= 1e-4 m, the same NaN mask), ms by events and on the
+       card beside its bound at 3.35 TB/s, the copies both ways,
+       voxel_downsample(0.2) on the host; aggregate_lidar on the fixture
+       clips on the card against backend='host' (same counts, <= 1e-4 m).
+
 Pipelines of phases 2-4 that are expected to run the counting pass first
 delete the clip's counts sidecar (forget_counts).
 
 The last two lines are the kernels' JSON record and the result line.  The
 script fails if any module of jax or of the JAX package cama_tpu was
 loaded.  Needs numpy, scipy and torch with CUDA, nvcc and g++; no yaml or
-ffmpeg, and cv2 only for the two sub-phases named above.
+ffmpeg, and cv2 only for the sub-phases named above.
 """
 from __future__ import annotations
 
@@ -1199,6 +1226,335 @@ def eval_phase(clip, dev, card):
                 f"each on the card: {calls}")
 
 
+SITE_ITERS = 600        # phase 7: Adam steps of the refinement
+LIDAR_SWEEPS = 200      # phase 7: a 20 s nuScenes scene at every=2
+LIDAR_POINTS = 34_720   # phase 7: LIDAR_TOP's largest sweep
+# phase 7's bounds on the seeded 16-clip site: the refined loss against the
+# first, and the perturbation left after refinement (an H100 at 700 W read
+# 0.1192, 0.0620 deg and 0.0741 m; PERF.md)
+SITE_LOSS_RATIO_MAX = 0.45
+SITE_ROT_ERR_MAX_DEG = 0.2
+SITE_TRANS_ERR_MAX_M = 0.1
+
+
+def site_clips(root, with_images):
+    """Two clips over overlapping road (tests/test_aggregate.py's site
+    clips): the second 0.7 s further along and in an SfM frame turned by
+    8 deg and shifted by (15, -7) m.  Small JPEGs when cv2 can write them,
+    so the CLI can write the member videos."""
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(n_frames=14, flat_height=True, with_images=with_images,
+                  image_size=(320, 180))
+    a = make_fixture_clip(root, scene_name="scene-a", **common)
+    b = make_fixture_clip(root, scene_name="scene-b", traj_t_offset=0.7,
+                          t0_ms=1600000100000,
+                          world_sim3={"yaw_deg": 8.0, "tx": 15.0, "ty": -7.0},
+                          **common)
+    return a, b
+
+
+def sim3_error(r, t, s, yaw_deg, tx, ty):
+    """(degrees, metres) between an estimated SfM->world Sim(3) and the
+    inverse of the fixture's world->SfM misalignment, the metres at the
+    SfM origin, and |s - 1|."""
+    import numpy as np
+
+    a = np.deg2rad(yaw_deg)
+    M = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                  [0.0, 0.0, 1.0]])
+    Rres = np.asarray(r) @ M
+    deg = float(np.degrees(np.arccos(np.clip(0.5 * (np.trace(Rres) - 1.0),
+                                             -1.0, 1.0))))
+    t_true = -M.T @ np.array([tx, ty, 0.0])
+    return deg, float(np.linalg.norm(np.asarray(t) - t_true)), abs(s - 1.0)
+
+
+def site_phase(dev, card):
+    """Phase 7 (module docstring): the CAMAv2 site path and LiDAR
+    aggregation, with every device step of the site path wrapped to raise
+    on a tensor off the card.  Raises on any failed check."""
+    import torch
+
+    from cama_tpu_torch.aggregate import lidar as tl
+    from cama_tpu_torch.aggregate import site as ts
+
+    # the site path's device steps must see tensors on the card only
+    guarded = {(ts, "_chamfer_pairs"): 0, (ts, "_refine_step"): 0,
+               (tl, "_transform_points"): 0}
+    reals = {key: getattr(*key) for key in guarded}
+
+    def on_card(key, real):
+        def call(*a, **k):
+            flat = list(a) + list(k.values())
+            for x in list(flat):
+                if isinstance(x, dict):
+                    flat += list(x.values())
+            for x in flat:
+                if isinstance(x, torch.Tensor) and x.device.type != dev.type:
+                    raise RuntimeError(f"{key[1]}: a tensor on {x.device}")
+            guarded[key] += 1
+            return real(*a, **k)
+        return call
+
+    for key, real in reals.items():
+        setattr(*key, on_card(key, real))
+    try:
+        site_checks(dev, card, reals[(ts, "_chamfer_pairs")])
+    finally:
+        for key, real in reals.items():
+            setattr(*key, real)
+    say("site", "guarded calls, every tensor on the card: "
+                + ", ".join(f"{k[1]} {n}" for k, n in guarded.items()))
+    if not all(guarded.values()):
+        raise RuntimeError(f"a device step of the site path never ran: {guarded}")
+
+
+def site_checks(dev, card, chamfer_cpu):
+    """The checks of phase 7; chamfer_cpu is _chamfer_pairs unwrapped, for
+    the comparison on CPU tensors."""
+    import numpy as np
+    import torch
+
+    from cama_tpu_torch import cli
+    from cama_tpu_torch.aggregate import lidar as tl
+    from cama_tpu_torch.aggregate import site as ts
+    from cama_tpu_torch.pipeline import ClipPipeline
+    from cama_tpu_torch.tools.bench_kernels import time_ms
+    from cama_tpu_torch.tools.site_cases import make_site_case, recovery_errors
+
+    # ---- 1. the path end to end on fixture clips ----
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    clips = site_clips(os.path.join(WORK, "site"), has_cv2)
+    results = {}
+    real_refine, real_dedupe = ts.Site.refine_alignment, ts.Site.dedupe
+
+    def recorded(name, real):
+        def call(self, *a, **k):
+            results[name] = real(self, *a, **k)
+            return results[name]
+        return call
+
+    ts.Site.refine_alignment = recorded("refine", real_refine)
+    ts.Site.dedupe = recorded("dedupe", real_dedupe)
+    try:
+        t0 = time.perf_counter()
+        site = ts.Site.from_clips(list(clips), refine=True, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        ts.Site.refine_alignment, ts.Site.dedupe = real_refine, real_dedupe
+    est = ts.estimate_sim3_to_world(site.clips[1][1])
+    e_deg, e_m, e_s = sim3_error(*est, 8.0, 15.0, -7.0)
+    r_deg, r_m, r_s = sim3_error(*site.clips[1][2], 8.0, 15.0, -7.0)
+    before, after = results["refine"]
+    say("site", f"Site.from_clips(2 fixture clips, refine=True, "
+                f"device={dev.type}) in {secs:.3f} s: clip 1's Sim(3) "
+                f"against the injected one (yaw 8 deg, (15, -7) m): "
+                f"estimate {e_deg:.6f} deg, {e_m:.6f} m, |s-1| {e_s:.2e}; "
+                f"refined {r_deg:.6f} deg, {r_m:.6f} m, |s-1| {r_s:.2e}; "
+                f"refinement before {before:.6f}, after {after:.6f}; dedupe "
+                f"removed {results['dedupe']} of "
+                f"{results['dedupe'] + len(site.instances)} elements")
+    if e_deg > 1e-3 or e_m > 1e-3 or results["dedupe"] != 8 or \
+            [ci for _, _, ci in site.instances] != [0] * 8:
+        raise RuntimeError("the site of the fixture clips is wrong")
+    reset_all_launches()
+    got = {(ci, idx): r for ci, idx, r in
+           site.member_overlay_rasters(chunk=CHUNK)}
+    launched = all_launches()
+    apart, n_frames = 0, 0
+    for ci in range(len(clips)):
+        solo = dict(site.pipeline_for_clip(ci, chunk=CHUNK)
+                    .iter_overlay_rasters("site"))
+        if {i for c, i in got if c == ci} != set(solo):
+            raise RuntimeError(f"member {ci}: the site path yields other frames")
+        apart += sum(int((got[(ci, i)] != r).sum()) for i, r in solo.items())
+        n_frames += len(solo)
+    say("site", f"member_overlay_rasters (MultiScenePipeline, source 'site', "
+                f"on the card): {n_frames} frames, {apart} pixels apart from "
+                f"each member's own ClipPipeline rasters; launches on that "
+                f"path: {launched}")
+    if apart or launched["fused_compact_project"] <= 0:
+        raise RuntimeError("the site rasters differ from the members' own, or "
+                           "fused_compact_project did not run on the path")
+    writes_video = shutil.which("ffmpeg") is not None or has_cv2
+    if writes_video:
+        conv = os.path.dirname(clips[0])
+        names = [os.path.basename(c) for c in clips]
+        out_dir = os.path.join(WORK, "site_videos")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        prepared = [(n, ClipPipeline(clip_path=c, device=dev), {})
+                    for n, c in zip(names, clips)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            failures = cli._run_sites(
+                {"sites": [{"name": "overlap", "scenes": names}]},
+                prepared, conv, out_dir, dev)
+        secs = time.perf_counter() - t0
+        made = sorted(os.listdir(out_dir))
+        say("site", f"cli._run_sites in {secs:.2f} s: "
+                    f"failures {failures}, wrote {made}")
+        if failures or made != ["overlap_labels.json",
+                                "overlap_scene-a_site.mp4",
+                                "overlap_scene-b_site.mp4"]:
+            raise RuntimeError(f"cli._run_sites failed: {buf.getvalue()[-2000:]}")
+    else:
+        say("site", "cli._run_sites not run: neither ffmpeg nor cv2 can "
+                    "write video here")
+
+    # ---- 2. a site at the size users run, from a seed ----
+    case = make_site_case()
+    n_clips = len(case["perturb"])
+    big = ts.Site(name="seeded", device=dev)
+    big.instances = list(case["instances"])
+    big.clips = [(f"clip-{c}", None, (np.eye(3), np.zeros(3), 1.0))
+                 for c in range(n_clips)]
+    _, _, ii, _, _, _ = ts._candidate_pairs(big.instances, 128, 2.0)
+    n_pairs = len(ii)
+    say("site", f"seeded site: {n_clips} clips, {len(big.instances)} "
+                f"elements, {n_pairs} candidate pairs at tol 2.0 "
+                f"(S = 128, {ts._group_pairs(128)} pairs an op group)")
+    if not 8192 <= n_pairs <= 65536:
+        raise RuntimeError(f"{n_pairs} candidate pairs, not in 8192..65536")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    before, after = big.refine_alignment(iters=SITE_ITERS)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    errs = recovery_errors(big.clips, case["perturb"])
+    rot_err = max(e[0] for e in errs)
+    trans_err = max(e[1] for e in errs)
+    # one step's device work, on a scratch state
+    pts, w, ii, jj, clip, _ = ts._candidate_pairs(big.instances, 128, 2.0)
+    data, _ = ts.refine_data(pts, w, ii, jj, clip, dev)
+    params, opt, anchor = ts.refine_state(n_clips, 2e-2, dev)
+    seen, step_ms = device_work(
+        lambda: ts._refine_step(params, opt, anchor, data))
+    launches = None if seen is None else sum(seen.values())
+    say("site", f"refine_alignment(iters={SITE_ITERS}) on the card: before "
+                f"{before:.6f}, after {after:.6f} (ratio "
+                f"{after / before:.4f}); perturbation left, worst clip: "
+                f"{rot_err:.4f} deg, {trans_err:.4f} m; "
+                f"{e0.elapsed_time(e1) / SITE_ITERS:.4f} ms/step by events "
+                f"({wall:.3f} s wall, probe and folding included), "
+                + ("device time and launches not measured" if seen is None
+                   else f"{step_ms:.4f} ms/step on the card, {launches} "
+                        f"device launches/step")
+                + f"; peak device memory {peak:.1f} MiB | {card}")
+    if not (after < SITE_LOSS_RATIO_MAX * before
+            and rot_err <= SITE_ROT_ERR_MAX_DEG
+            and trans_err <= SITE_TRANS_ERR_MAX_M):
+        raise RuntimeError(
+            f"refinement did not recover the perturbation: ratio "
+            f"{after / before:.4f} (max {SITE_LOSS_RATIO_MAX}), "
+            f"{rot_err:.4f} deg (max {SITE_ROT_ERR_MAX_DEG}), "
+            f"{trans_err:.4f} m (max {SITE_TRANS_ERR_MAX_M}): {errs}")
+    # dedupe at 0.5 m on the refined site, card against the same code on
+    # CPU tensors; a pair within 1e-5 of tol may fall either way
+    tol = 0.5
+    pts, w, ii, jj, _, _ = ts._candidate_pairs(big.instances, 256, tol)
+    args_card = [torch.from_numpy(x).to(dev) for x in (pts, w, ii, jj)]
+    args_cpu = [torch.from_numpy(x) for x in (pts, w, ii, jj)]
+    d_card = ts._chamfer_pairs(*args_card).cpu().numpy()
+    d_ms = time_ms(lambda: ts._chamfer_pairs(*args_card), runs=5)
+    t0 = time.perf_counter()
+    d_cpu = chamfer_cpu(*args_cpu).numpy()
+    cpu_s = time.perf_counter() - t0
+    near = np.abs(d_cpu - tol) <= 1e-5
+    flips = (d_card < tol) != (d_cpu < tol)
+    I = len(big.instances)
+    masks = []
+    for d in (d_card, d_cpu):
+        close = np.zeros((I, I), bool)
+        close[jj, ii] = d < tol
+        masks.append(ts.greedy_keep(close))
+    removed = big.dedupe(tol=tol)
+    say("site", f"dedupe(tol={tol}) of {I} elements: {len(ii)} pairs (S = "
+                f"256), {removed} removed; _chamfer_pairs {d_ms:.4f} ms on "
+                f"the card by events = {len(ii) / d_ms * 1e3:.0f} pairs/s "
+                f"(CPU tensors: {cpu_s * 1e3:.1f} ms host wall); card "
+                f"against CPU: max |diff| {np.abs(d_card - d_cpu).max():.3e}, "
+                f"{int(near.sum())} pairs within 1e-5 of tol, "
+                f"{int(flips.sum())} decisions differ, "
+                f"{int((masks[0] != masks[1]).sum())} keep entries differ | "
+                f"{card}")
+    if (flips & ~near).any() or (not flips.any() and (masks[0] != masks[1]).any()) \
+            or removed != int((~masks[0]).sum()):
+        raise RuntimeError("dedupe on the card differs from the CPU")
+
+    # ---- 3. LiDAR at nuScenes density ----
+    rng = np.random.default_rng(7)
+    F, N = LIDAR_SWEEPS, LIDAR_POINTS
+    counts = rng.integers(N // 2, N + 1, F)
+    counts[0] = N
+    valid = np.arange(N)[None, :] < counts[:, None]
+    r = rng.uniform(1.0, 80.0, (F, N)).astype(np.float32)
+    az = rng.uniform(-np.pi, np.pi, (F, N)).astype(np.float32)
+    el = rng.uniform(-0.53, 0.19, (F, N)).astype(np.float32)
+    pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el)], -1).astype(np.float32)
+    pts[~valid] = 0.0
+    yaw = np.cumsum(rng.normal(0.0, 0.01, F))
+    T = np.tile(np.eye(4), (F, 1, 1))
+    T[:, 0, 0], T[:, 0, 1], T[:, 1, 0], T[:, 1, 1] = (
+        np.cos(yaw), -np.sin(yaw), np.sin(yaw), np.cos(yaw))
+    T[:, :3, 3] = np.stack([np.linspace(-100.0, 100.0, F),
+                            rng.normal(0, 0.5, F), np.full(F, 1.8)], -1)
+    T32 = T.astype(np.float32)
+    T_c, p_c, v_c = (torch.from_numpy(x).to(dev) for x in (T32, pts, valid))
+    out = tl._transform_points(T_c, p_c, v_c).cpu().numpy()
+    host = tl._transform_points_host(T32, pts, valid)
+    nan_same = bool((np.isnan(out) == np.isnan(host)).all())
+    err = float(np.nanmax(np.abs(out - host)))
+    ms = time_ms(lambda: tl._transform_points(T_c, p_c, v_c))
+    _, card_ms = device_work(lambda: tl._transform_points(T_c, p_c, v_c))
+    nbytes = F * N * (12 + 1 + 12) + F * 64
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    h2d = time_ms(lambda: [torch.from_numpy(x).to(dev) for x in (pts, valid)],
+                  runs=3)
+    d2h = time_ms(lambda: tl._transform_points(T_c, p_c, v_c).cpu(), runs=3)
+    flat = out.reshape(-1, 3)
+    flat = flat[~np.isnan(flat[:, 0])].astype(np.float64)
+    t0 = time.perf_counter()
+    vox = tl.voxel_downsample(flat, 0.2)
+    vox_ms = 1e3 * (time.perf_counter() - t0)
+    say("lidar", f"_transform_points, {F} sweeps x {N} points "
+                 f"({int(counts.sum())} valid): max |card - host mirror| "
+                 f"{err:.3e} m, NaN masks {'equal' if nan_same else 'DIFFER'}; "
+                 f"{ms:.4f} ms by events, "
+                 + ("not measured" if card_ms is None else f"{card_ms:.4f} ms")
+                 + f" on the card, bound {bound_ms:.4f} ms ({nbytes} bytes "
+                 f"at 3.35 TB/s); H2D of the sweeps {h2d:.3f} ms, transform + "
+                 f"D2H {d2h:.3f} ms; voxel_downsample(0.2) {len(flat)} -> "
+                 f"{len(vox)} points in {vox_ms:.1f} ms on the host | {card}")
+    if err > 1e-4 or not nan_same:
+        raise RuntimeError("the LiDAR transform on the card differs from the "
+                           "host mirror")
+    worst = 0.0
+    for c in clips:
+        a = tl.aggregate_lidar(c, device=dev)
+        b = tl.aggregate_lidar(c, backend="host")
+        if a.shape != b.shape:
+            raise RuntimeError(f"aggregate_lidar: {a.shape} on the card, "
+                               f"{b.shape} on the host")
+        worst = max(worst, float(np.abs(a - b).max()))
+    cloud = site.aggregate_lidar(voxel=0.2, every=2)
+    say("lidar", f"aggregate_lidar on the fixture clips, card against "
+                 f"backend='host': same point counts, max |diff| {worst:.3e} "
+                 f"m; Site.aggregate_lidar(voxel 0.2) {len(cloud)} points")
+    if worst > 1e-4:
+        raise RuntimeError("aggregate_lidar on the card differs from the host")
+
+
 def main():
     import numpy as np
     import torch
@@ -1822,6 +2178,9 @@ def main():
 
     # ---- phase 6: map evaluation ----
     eval_phase(clip, dev, card)
+
+    # ---- phase 7: the site path and LiDAR aggregation ----
+    site_phase(dev, card)
 
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))

@@ -8,11 +8,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from cama_tpu import pipeline as jpipe
 from cama_tpu.io.fixture import make_fixture_clip
 from cama_tpu_torch import pipeline as tpipe
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LANES = ("fused", "pallas", "compact", "scatter")
 

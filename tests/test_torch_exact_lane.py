@@ -16,6 +16,18 @@ from cama_tpu_torch.ops import geometry as tg
 from cama_tpu_torch.ops import raster as tr
 from cama_tpu_torch.pipeline import ClipPipeline, _exact_patch_raster_chunk
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the input triple that exposed a compiler's rewrite of the error-free
 # transforms (cama_tpu/ops/geometry.py:_eft_jit_faithful)
 PROBE_ROW = np.array([[612.9723510742188, -664.3383178710938,

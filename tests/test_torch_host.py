@@ -380,3 +380,41 @@ def test_frame_cache_closes_each_fd_once(tmp_path, monkeypatch):
     del cache
     gc.collect()
     assert sorted(closed) == sorted(fds + fds2)
+
+
+def test_build_dir_falls_back_to_user_cache(tmp_path, monkeypatch):
+    """Where build/ beside the package cannot be created (an installed,
+    read-only copy), the kernels' library and the compositor go to the
+    per-user cache directory, and the compositor builds there; with no
+    writable directory at all the kernels' build raises."""
+    from cama_tpu_torch import _build
+
+    blocker = tmp_path / "file"
+    blocker.write_text("")  # a file where a directory would go
+    monkeypatch.setattr(_build, "BUILD_DIR", str(blocker / "build"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    want = str(tmp_path / "cache" / "cama_tpu_torch")
+    assert _build.build_dir() == want
+    assert os.path.dirname(_build.library_path()) == want
+    assert os.path.dirname(tnative.library_path()) == want
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    assert tnative.available() and os.path.exists(tnative.library_path())
+    monkeypatch.setenv("XDG_CACHE_HOME", str(blocker / "cache"))
+    with pytest.raises(RuntimeError, match="no writable build directory"):
+        _build.library_path()
+
+
+def test_build_color_table_takes_color_maps():
+    from cama_tpu.ops import raster as jraster
+    from cama_tpu_torch.ops import raster as traster
+
+    names = ["lane_marking", "Road_teeth", "Crosswalk_Line", "Stop_Line"]
+    custom = {"lane_marking": np.array([1, 2, 3]),
+              "Crosswalk_Line": np.array([250, 5, 6])}
+    np.testing.assert_array_equal(traster.build_color_table(names, custom),
+                                  jraster.build_color_table(names, custom))
+    np.testing.assert_array_equal(traster.build_color_table(names, custom)[0],
+                                  [3, 2, 1])
+    np.testing.assert_array_equal(traster.build_color_table(names),
+                                  jraster.build_color_table(names))

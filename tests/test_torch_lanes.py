@@ -19,6 +19,18 @@ from cama_tpu_torch.ops import paint as tpaint
 from cama_tpu_torch.ops import raster as tr
 from cama_tpu_torch.ops.pallas_project import LAUNCHES as PP_LAUNCHES
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W, H = 40, 24
 LANES = ("pallas", "compact", "scatter")
 

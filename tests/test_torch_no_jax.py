@@ -264,9 +264,66 @@ _CHILD_MAP_EVAL = textwrap.dedent("""
 """)
 
 
+
+# jax and the JAX package both unimportable: a site from two overlapping
+# clips (Sim(3) estimate, refinement, dedupe, member reprojection), LiDAR
+# aggregation on both backends, and the three scripts the pyproject names
+_CHILD_SITE_LIDAR = textwrap.dedent("""
+    import io, os, sys, tempfile
+    from contextlib import redirect_stdout
+    sys.modules["jax"] = None
+    sys.modules["cama_tpu"] = None
+    import numpy as np
+    import tomllib
+    from importlib import import_module
+    from cama_tpu_torch.aggregate import Site, aggregate_lidar
+    from cama_tpu_torch.io.fixture import make_fixture_clip
+
+    root = tempfile.mkdtemp()
+    common = dict(n_frames=14, with_images=False, flat_height=True)
+    a = make_fixture_clip(root, scene_name="a", **common)
+    b = make_fixture_clip(root, scene_name="b", traj_t_offset=0.7,
+                          t0_ms=1600000100000, world_sim3={"yaw_deg": 8.0},
+                          **common)
+    site = Site.from_clips([a, b], refine=True, device="cpu")
+    assert [ci for _, _, ci in site.instances] == [0] * 8
+    rasters = list(site.member_overlay_rasters(chunk=4))
+    assert {ci for ci, _, _ in rasters} == {0, 1}
+    cloud = site.aggregate_lidar(voxel=0.5, every=4)
+    assert len(cloud) > 1000 and cloud[:, 0].min() > -285
+    host = aggregate_lidar(a, backend="host")
+    dev = aggregate_lidar(a, device="cpu")
+    assert host.shape == dev.shape and np.abs(host - dev).max() < 1e-4
+    with open(os.path.join(sys.argv[1], "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    gt = os.path.join(a, "odometry", "wigo.txt")
+    runs = {
+        "cama-tpu-torch-site": ["--clips", a, b, "--out-dir", root,
+                                "--device", "cpu", "--lidar"],
+        "cama-tpu-torch-lidar": ["--clip", a, "--out", os.path.join(root, "a.xyz"),
+                                 "--device", "cpu"],
+        "cama-tpu-torch-pose-eval": ["--gt", gt, "--pred", gt],
+    }
+    for name, argv in runs.items():
+        mod, fn = scripts[name].split(":")
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            getattr(import_module(mod), fn)(argv)
+        assert buf.getvalue(), name
+    assert sorted(os.listdir(root)) == ["a", "a.xyz", "b", "site_labels.json",
+                                        "site_lidar.pcd", "site_map.pcd"]
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("SITE_LIDAR_OK")
+""")
+
 def _run_child(code, cwd, *argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    # one intra-op torch thread: the test suite runs several workers at once
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, "-c", code, *argv], cwd=str(cwd),
                           env=env, capture_output=True, text=True, timeout=300)
 
@@ -316,6 +373,12 @@ def test_map_eval_without_jax_or_cama_tpu(tmp_path):
     assert "MAP_EVAL_OK" in proc.stdout
 
 
+def test_site_lidar_and_scripts_without_jax_or_cama_tpu(tmp_path):
+    proc = _run_child(_CHILD_SITE_LIDAR, tmp_path, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "SITE_LIDAR_OK" in proc.stdout
+
+
 def _port_sources():
     """Every Python file of the port and chip_smoke.py, by path."""
     pkg = os.path.join(REPO, "cama_tpu_torch")
@@ -342,7 +405,11 @@ def test_port_sources_never_load_cama_tpu():
     assert {"chip_smoke.py", "cama_tpu_torch/validate.py",
             "cama_tpu_torch/convert/nuscenes.py",
             "cama_tpu_torch/eval/__init__.py",
-            "cama_tpu_torch/eval/map_metrics.py"} <= scanned
+            "cama_tpu_torch/eval/map_metrics.py",
+            "cama_tpu_torch/eval/pose_metrics.py",
+            "cama_tpu_torch/aggregate/lidar.py",
+            "cama_tpu_torch/aggregate/site.py",
+            "cama_tpu_torch/se3/trajectory.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -365,5 +432,7 @@ def test_port_sources_never_import_jax():
     assert {"pipeline.py", "ops/pallas_project.py", "ops/paint.py",
             "tools/bench_kernels.py", "validate.py", "convert/geom.py",
             "convert/vecmap.py", "convert/nuscenes.py", "eval/__init__.py",
-            "eval/map_metrics.py"} <= scanned, \
+            "eval/map_metrics.py", "eval/pose_metrics.py",
+            "aggregate/__init__.py", "aggregate/lidar.py", "aggregate/site.py",
+            "se3/core.py", "se3/codec.py", "se3/trajectory.py"} <= scanned, \
         sorted(scanned)

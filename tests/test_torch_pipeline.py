@@ -19,6 +19,17 @@ from cama_tpu_torch.ops import geometry as tgeo
 from cama_tpu_torch.ops.fused_compact import LAUNCHES
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def clip(tmp_path_factory):
     return make_fixture_clip(tmp_path_factory.mktemp("tpipe"), n_frames=4,

@@ -7,10 +7,22 @@ import json
 import os
 
 import pytest
+import torch
 
 from cama_tpu import pipeline as jpipe
 from cama_tpu.io.fixture import make_fixture_clip
 from cama_tpu_torch import pipeline as tp
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 COUNTING = ("count_union", "fused_compact_project", "crop_mask",
             "project_frames", "project_frame_pallas", "_encode_effective")

@@ -27,6 +27,18 @@ from cama_tpu_torch.ops import raster as tr
 from cama_tpu_torch.ops.geometry import compose_frame_matrices, crop_bounds
 from cama_tpu_torch.tools import fused_cases
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LANES = ("fused", "pallas", "compact", "scatter")
 WIDE = dict(n_frames=17, label_span=(-290.0, 210.0))  # bench.py's wide scene
 

@@ -6,12 +6,24 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from cama_tpu import validate as jvalidate
 from cama_tpu.io.fixture import make_fixture_clip
 from cama_tpu.pipeline import ClipPipeline as JClipPipeline
 from cama_tpu_torch import pipeline as tp
 from cama_tpu_torch import validate as tvalidate
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The test suite runs several worker processes at once; one intra-op
+    torch thread in this one keeps torch's CPU ops from oversubscribing the
+    cores (the compared results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
