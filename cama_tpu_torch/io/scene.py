@@ -80,6 +80,11 @@ class Scene:
     reader: ClipReader = field(repr=False, default=None)
     from_cache: bool = False  # True when served by load_scene_cache
 
+    @property
+    def sources(self):
+        """The label sources the scene lifted, sorted."""
+        return sorted(self.flat.keys())
+
     def image_path(self, camera, index):
         """JPEG of `camera` at row `index` of the sync table."""
         return os.path.join(self.clip_path, camera,

@@ -5,8 +5,11 @@ index in the compacted survivor list (ascending = later drawn), packed with
 its class id as ``priority * MAX_CLS + cls``; a per-pixel scatter-max at the
 point centres followed by two rounds of plus-stencil max-dilation paints
 cv2's radius-2 disk (the L1 ball of radius 2) with "last drawn wins"
-semantics.  Outputs are integers and match the JAX functions exactly
-(tests/test_torch_raster.py).
+semantics; rasterize_packed scatters the 13 stencil samples directly.
+Outputs are integers and match the JAX functions exactly
+(tests/test_torch_raster.py, tests/test_torch_composite.py).  The device
+compositors (composite_overlay, composite_mosaic_device) are plain tensor
+ops, as their JAX counterparts are XLA programs.
 """
 from __future__ import annotations
 
@@ -73,6 +76,33 @@ def scatter_max(pix, prio, hw):
                      device=pix.device)
     buf.scatter_reduce_(1, pix.to(torch.int64), prio, "amax")
     return buf[:, :hw]
+
+
+def rasterize_packed(vu, keep, cls, width, height, prio_offset=0):
+    """Dense packed raster with the full 13-sample circle stamp: every kept
+    point scatters ``(prio_offset + index) * MAX_CLS + cls`` at each of its
+    stencil pixels inside the image (samples off the image are dropped one
+    by one, as cv2 clips a circle).
+
+    vu [..., P, 2] f32 (v, u), keep [..., P] bool, cls [P] int32.  Returns
+    packed [..., H, W] int32: -1 where unpainted."""
+    P = vu.shape[-2]
+    vi = vu[..., 0].to(torch.int32)
+    ui = vu[..., 1].to(torch.int32)
+    order = torch.arange(P, dtype=torch.int32, device=vu.device)
+    prio = torch.broadcast_to((prio_offset + order) * MAX_CLS + cls,
+                              vu.shape[:-1])
+    offs = torch.from_numpy(CIRCLE_R2_OFFSETS).to(vu.device)  # [13, 2]
+    yy = vi[..., None] + offs[:, 0]  # [..., P, 13]
+    xx = ui[..., None] + offs[:, 1]
+    inside = ((yy >= 0) & (yy < height) & (xx >= 0) & (xx < width)
+              & keep[..., None])
+    pix = torch.where(inside, yy * width + xx, height * width)
+    n = len(CIRCLE_R2_OFFSETS)
+    prio13 = torch.broadcast_to(prio[..., None], pix.shape)
+    out = scatter_max(pix.reshape(-1, P * n), prio13.reshape(-1, P * n),
+                      height * width)
+    return out.reshape(vu.shape[:-2] + (height, width))
 
 
 def _scatter_dilate(pix, prio, width, height, batch):
@@ -267,6 +297,48 @@ def build_color_table(class_names, color_maps=None):
         eff = name if name == "lane_marking" else "Crosswalk_Line"
         rows.append(color_maps[eff][::-1])  # BGR, as cv2 draws on BGR images
     return np.asarray(rows, dtype=np.uint8)
+
+
+def _color_rows(color_table, idx):
+    """color_table[idx] with idx clamped into the table's rows, as XLA
+    clamps an out-of-range gather: the unpainted pixels' index (row 7 of
+    MAX_CLS for class 0) stays a valid read of a K-row table."""
+    return color_table[idx.clamp(0, color_table.shape[0] - 1)]
+
+
+def composite_overlay(image_bgr, packed, color_table):
+    """Paint a packed raster onto an image on the device: image[painted] =
+    color[cls] (cama_tpu/ops/raster.py:composite_overlay).
+
+    image_bgr [..., H, W, 3] uint8, packed [..., H, W] int32 (-1 =
+    unpainted), color_table [K, 3] uint8."""
+    painted = packed >= 0
+    cls = torch.where(painted, packed % MAX_CLS, 0).long()
+    return torch.where(painted[..., None], _color_rows(color_table, cls),
+                       image_bgr)
+
+
+def composite_mosaic_device(base, cls_raster, color_table, grid, rows=2,
+                            cols=3):
+    """Paint and 3x2 mosaic placement on the device, so the host receives
+    one [rows * h, cols * w, 3] frame
+    (cama_tpu/ops/raster.py:composite_mosaic_device).
+
+    base [C, h, w, 3] uint8 undistorted camera images; cls_raster [C, h, w]
+    uint8 class rasters (0 = unpainted, else class + 1); color_table
+    [K, 3] uint8 BGR rows; grid [C] integer mosaic slot per camera (row *
+    cols + col).  Painted pixels take color_table[(cls - 1) % MAX_CLS],
+    the rest keep the base pixel: byte-identical to the host
+    compositor."""
+    painted = cls_raster > 0
+    colors = _color_rows(color_table, (cls_raster.long() - 1) % MAX_CLS)
+    imgs = torch.where(painted[..., None], colors, base)
+    _C, h, w, _3 = base.shape
+    slots = torch.zeros((rows * cols, h, w, 3), dtype=imgs.dtype,
+                        device=imgs.device)
+    slots[grid.long()] = imgs
+    return (slots.view(rows, cols, h, w, 3).permute(0, 2, 1, 3, 4)
+            .reshape(rows * h, cols * w, 3))
 
 
 def composite_overlay_host(image_bgr, packed, color_table):

@@ -1,15 +1,18 @@
-"""Undistortion + resize remap grids, computed once per camera (host).
+"""Undistortion + resize remap grids, computed once per camera, and their
+application on the host or the device.
 
-Copy of the host half of cama_tpu/ops/undistort.py, which cannot be
-imported without jax.  `compute_remap` replicates OpenCV's
-initUndistortRectifyMap math (pinhole + radial k1..k6 / tangential p1 p2,
-identity rectification); `remap_host` applies the grid with cv2.remap, so
-base images are byte-exact to the reference renderer.  The device bilinear
-remap is not part of this package yet.
+Counterpart of cama_tpu/ops/undistort.py.  `compute_remap` replicates
+OpenCV's initUndistortRectifyMap math (pinhole + radial k1..k6 / tangential
+p1 p2, identity rectification); `remap_host` applies the grid with
+cv2.remap, so base images are byte-exact to the reference renderer, and
+falls back to `remap_bilinear` on CPU tensors where cv2 is missing;
+`remap_bilinear` is the bilinear gather in plain tensor ops, on whatever
+device its tensors lie (tests/test_torch_composite.py holds it to JAX's).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def compute_remap(K_orig, d, K_new, out_size):
@@ -45,10 +48,12 @@ def compute_remap(K_orig, d, K_new, out_size):
 
 
 class RemapCache:
-    """Per-camera cached host remap grids."""
+    """Per-camera cached remap grids (host arrays, and tensors per
+    device)."""
 
     def __init__(self):
         self._host = {}
+        self._dev = {}
 
     def get(self, key, K_orig, d, K_new, out_size):
         if key not in self._host:
@@ -71,9 +76,56 @@ class RemapCache:
         return self._host[key]
 
 
-def remap_host(image, mapx, mapy, interpolation=None):
-    """cv2.remap with the cached grid (byte-exact to the reference)."""
-    import cv2
+    def get_device(self, key, K_orig, d, K_new, out_size, device):
+        """(mapx, mapy) of get() as float32 tensors on `device`, uploaded
+        once per (key, device)."""
+        device = torch.device(device)
+        if (key, device) not in self._dev:
+            mapx, mapy = self.get(key, K_orig, d, K_new, out_size)
+            self._dev[key, device] = (torch.from_numpy(mapx).to(device),
+                                      torch.from_numpy(mapy).to(device))
+        return self._dev[key, device]
 
+
+def remap_host(image, mapx, mapy, interpolation=None):
+    """cv2.remap with the cached grid (byte-exact to the reference) when cv2
+    is installed, else the float bilinear fallback on CPU tensors (a host
+    path, as the JAX package's fallback is)."""
+    try:
+        import cv2
+    except ImportError:
+        return remap_bilinear(torch.from_numpy(np.asarray(image)),
+                              torch.from_numpy(np.asarray(mapx)),
+                              torch.from_numpy(np.asarray(mapy))).numpy()
     interp = cv2.INTER_LINEAR if interpolation is None else interpolation
     return cv2.remap(image, mapx, mapy, interpolation=interp)
+
+
+def remap_bilinear(image, mapx, mapy):
+    """Bilinear remap with BORDER_CONSTANT = 0 (cv2.remap's default):
+    four gathered taps, each zero off the image, weighted in the JAX
+    function's order; integer images round half to even at the end.
+
+    image [H, W, C] uint8 (or float); mapx / mapy [h, w] float32, on one
+    device.  Returns [h, w, C] of the input dtype."""
+    H, W = image.shape[0], image.shape[1]
+    img = image.to(torch.float32)
+    x0 = torch.floor(mapx)
+    y0 = torch.floor(mapy)
+    fx = mapx - x0
+    fy = mapy - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+
+    def tap(yi, xi):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        val = img[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        return torch.where(inb[..., None], val, 0.0)
+
+    out = (tap(y0i, x0i) * ((1 - fx) * (1 - fy))[..., None]
+           + tap(y0i, x0i + 1) * (fx * (1 - fy))[..., None]
+           + tap(y0i + 1, x0i) * ((1 - fx) * fy)[..., None]
+           + tap(y0i + 1, x0i + 1) * (fx * fy)[..., None])
+    if not image.dtype.is_floating_point:
+        out = torch.round(out)
+    return out.to(image.dtype)

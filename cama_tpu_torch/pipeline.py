@@ -38,7 +38,9 @@ The counting pass's maxima persist per clip in
 this package's own (one per lane), so a later process skips the pass.
 ClipPipeline.iter_overlay_rasters_exact is the bit-exact lane: the f32
 projection with ambiguity flags, the flagged points recomputed on the host
-in the reference's f64 chain and patched in before the raster.  The JAX
+in the reference's f64 chain and patched in before the raster.
+ClipPipeline.mosaics_device composites the video mosaic on the device
+instead of the host (opt-in, byte-identical).  The JAX
 package's adaptive warm-up lane is not part of this package.
 """
 from __future__ import annotations
@@ -86,6 +88,7 @@ from cama_tpu_torch.ops.raster import (
     build_color_table,
     _encode_effective,
     compact_points,
+    composite_mosaic_device,
     pack_cls_2bit,
     packed_to_cls,
     paint_sparse_host,
@@ -788,15 +791,20 @@ class ClipPipeline:
             yield from drain(entry)
 
     def _overlay_single(self, source, image_idx):
-        """The dense class raster [C, H, W] uint8 of one frame, from the
-        lane's own dense program on a one-frame slice: the fallback for a
-        frame whose sparse list overflowed."""
+        """The dense class raster [C, H, W] uint8 of one frame on the host:
+        the fallback for a frame whose sparse list overflowed."""
+        return self._overlay_single_device(source, image_idx).cpu().numpy()
+
+    def _overlay_single_device(self, source, image_idx):
+        """_overlay_single's raster left on the pipeline's device, from the
+        lane's own dense program on a one-frame slice (only the list counts
+        cross to the host, to be held against the list size)."""
         fm = self.frame_matrices(source)
         i = int(np.flatnonzero(fm.frame_indices == image_idx)[0])
         run, limit = self._dense_program(source, False)
         raster, count = run(slice(i, i + 1))
         _check_lists(source, self.raster_kernel, i, count.cpu().numpy(), limit)
-        return raster[0].cpu().numpy()
+        return raster[0]
 
     def iter_overlay_rasters_host(self, source):
         """Pure-host overlay stream in float64: (image_idx, cls_raster
@@ -1104,6 +1112,49 @@ class ClipPipeline:
         cams = self.scene.camera_list
         results = pool.map(one, cams) if pool is not None else map(one, cams)
         return dict(results)
+
+    def mosaic_device(self, source, image_idx, cls_raster=None):
+        """One overlay video mosaic composited on the pipeline's device:
+        the frame's undistorted base images go up, the class raster is
+        painted and the 3x2 grid placed there
+        (ops.raster.composite_mosaic_device), and one [2h, 3w, 3] frame
+        comes back.  Byte-identical to the host compositor.  Opt-in:
+        write_videos and iter_frames keep the host compositor."""
+        return self.mosaics_device([source], image_idx,
+                                   {source: cls_raster})[source]
+
+    def mosaics_device(self, sources, image_idx, cls_rasters=None):
+        """Device mosaics of several label sources of one frame, with the
+        base pixels uploaded once for all of them.  cls_rasters: optional
+        {source: [C, H, W] uint8 class raster} (host array or tensor); a
+        source without one gets its raster from the lane's dense program,
+        left on the device.  Returns {source: [2h, 3w, 3] uint8}."""
+        pos = self._grid_positions()
+        if pos is None:
+            raise ValueError(
+                "device mosaic needs the exact reference 3x2 camera set")
+        missing = [s for s in sources if s not in self.scene.flat]
+        if missing:
+            raise ValueError(
+                f"scene has no labels for source(s) {missing}; "
+                f"available: {sorted(self.scene.flat)}")
+        cams = self.scene.camera_list
+        grid = torch.tensor([pos[c][0] * 3 + pos[c][1] for c in cams],
+                            dtype=torch.int64, device=self.device)
+        base = self.base_images(image_idx)
+        base_d = torch.from_numpy(
+            np.stack([np.asarray(base[c]) for c in cams])).to(self.device)
+        out = {}
+        for source in sources:
+            r = (cls_rasters or {}).get(source)
+            if r is None:
+                r = self._overlay_single_device(source, image_idx)
+            elif not isinstance(r, torch.Tensor):
+                r = torch.from_numpy(np.ascontiguousarray(r))
+            table = torch.from_numpy(self._color_tables[source]).to(self.device)
+            out[source] = composite_mosaic_device(
+                base_d, r.to(self.device), table, grid).cpu().numpy()
+        return out
 
     def _composite_base(self, camera, image_idx, base, out):
         """Base pixels for painting: into the persistent `out` buffer when

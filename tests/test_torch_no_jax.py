@@ -7,6 +7,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = textwrap.dedent("""
@@ -319,6 +321,74 @@ _CHILD_SITE_LIDAR = textwrap.dedent("""
     print("SITE_LIDAR_OK")
 """)
 
+# one of jax / the JAX package unimportable (sys.argv[2]): the QA report
+# (thumbnails, metrics, a site), the doctor and the warmup through the
+# scripts the pyproject names, on CPU; then the device mosaic and the
+# device trace
+_CHILD_QA_TOOLS = textwrap.dedent("""
+    import io, json, os, sys, tempfile
+    from contextlib import redirect_stdout
+    sys.modules[sys.argv[2]] = None
+    import numpy as np
+    import tomllib
+    import yaml
+    from importlib import import_module
+    from cama_tpu_torch.io.fixture import add_instance_masks, make_fixture_clip
+    from cama_tpu_torch.io.video import concat_camera_grid
+    from cama_tpu_torch.pipeline import ClipPipeline
+    from cama_tpu_torch.profiling import device_trace
+
+    root = tempfile.mkdtemp()
+    conv = os.path.join(root, "c")
+    for name in ("s1", "s2"):
+        clip = make_fixture_clip(conv, scene_name=name, n_frames=3,
+                                 image_size=(320, 180), with_lidar=False)
+        add_instance_masks(clip)
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"converted_dataroot": conv, "scene_names": ["s1", "s2"],
+                        "output_video_dir": os.path.join(root, "v"),
+                        "sites": [{"name": "both", "scenes": ["s1", "s2"]}]}, f)
+    with open(os.path.join(sys.argv[1], "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    runs = {"cama-tpu-torch-report": ["-c", cfg, "--device", "cpu",
+                                      "--thumbnails", "1", "--max-frames", "1",
+                                      "--no-instances"],
+            "cama-tpu-torch-doctor": ["-c", cfg, "--timeout", "20"],
+            "cama-tpu-torch-warmup": ["-c", cfg, "--device", "cpu", "--frames"]}
+    lines = {}
+    for name, argv in runs.items():
+        mod, fn = scripts[name].split(":")
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            try:
+                getattr(import_module(mod), fn)(argv)
+            except SystemExit as e:
+                assert e.code == 0, (name, e.code)
+        lines[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert lines["cama-tpu-torch-report"]["failures"] == 0
+    assert lines["cama-tpu-torch-report"]["sites"] == 1
+    with open(os.path.join(root, "v", "report.html")) as f:
+        assert f.read().count("data:image/jpeg;base64,") == 2
+    assert lines["cama-tpu-torch-doctor"]["scenes"]["s1"]["converted"]
+    assert lines["cama-tpu-torch-warmup"]["scenes"]["s2"]["frames"][
+        "images_cached"] == 18
+    pipe = ClipPipeline(clip_path=os.path.join(conv, "s1"), device="cpu")
+    with device_trace(os.path.join(root, "trace"), device="cpu"):
+        got = pipe.mosaics_device(["cama", "nuscenes"], 1)
+    for source, mosaic in got.items():
+        want = concat_camera_grid(pipe.composite_frame(
+            source, 1, pipe._overlay_single(source, 1)))
+        assert (mosaic == want).all(), source
+    assert len(os.listdir(os.path.join(root, "trace"))) == 1
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cama_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("QA_TOOLS_OK")
+""")
+
+
 def _run_child(code, cwd, *argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -379,6 +449,13 @@ def test_site_lidar_and_scripts_without_jax_or_cama_tpu(tmp_path):
     assert "SITE_LIDAR_OK" in proc.stdout
 
 
+@pytest.mark.parametrize("blocked", ["jax", "cama_tpu"])
+def test_report_doctor_warmup_without_jax_or_cama_tpu(tmp_path, blocked):
+    proc = _run_child(_CHILD_QA_TOOLS, tmp_path, REPO, blocked)
+    assert proc.returncode == 0, proc.stderr
+    assert "QA_TOOLS_OK" in proc.stdout
+
+
 def _port_sources():
     """Every Python file of the port and chip_smoke.py, by path."""
     pkg = os.path.join(REPO, "cama_tpu_torch")
@@ -409,7 +486,11 @@ def test_port_sources_never_load_cama_tpu():
             "cama_tpu_torch/eval/pose_metrics.py",
             "cama_tpu_torch/aggregate/lidar.py",
             "cama_tpu_torch/aggregate/site.py",
-            "cama_tpu_torch/se3/trajectory.py"} <= scanned
+            "cama_tpu_torch/se3/trajectory.py",
+            "cama_tpu_torch/report.py", "cama_tpu_torch/doctor.py",
+            "cama_tpu_torch/warmup.py", "cama_tpu_torch/profiling.py",
+            "cama_tpu_torch/ops/undistort.py",
+            "cama_tpu_torch/tools/profiler_loss.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -434,5 +515,7 @@ def test_port_sources_never_import_jax():
             "convert/vecmap.py", "convert/nuscenes.py", "eval/__init__.py",
             "eval/map_metrics.py", "eval/pose_metrics.py",
             "aggregate/__init__.py", "aggregate/lidar.py", "aggregate/site.py",
-            "se3/core.py", "se3/codec.py", "se3/trajectory.py"} <= scanned, \
+            "se3/core.py", "se3/codec.py", "se3/trajectory.py", "report.py",
+            "doctor.py", "warmup.py", "profiling.py", "ops/raster.py",
+            "ops/undistort.py", "tools/profiler_loss.py"} <= scanned, \
         sorted(scanned)
