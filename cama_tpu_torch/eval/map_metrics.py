@@ -932,6 +932,8 @@ class MapEvaluator:
         # surface with the default 'nearest' assignment; the 'dilate'
         # assignment stays device-only.
         self.backend = backend
+        # evaluate_scene_batch_sharded's steps, keyed by the mesh's layout
+        self._sharded_steps = {}
 
     def _chunk_has_gt(self, pipeline, idxs):
         """Any lane_ins PNG present for any (frame, camera) in this chunk:
@@ -1645,16 +1647,155 @@ class MapEvaluator:
         return results
 
     def evaluate_scene_batch_sharded(self, pipelines, mesh, source="cama"):
-        """Fleet evaluation with the scene batch sharded over several
-        devices.  Not part of this package yet: it needs the sharded
-        programs of cama_tpu/parallel/sharding.py
-        (sharded_scene_batch_metrics), which ROADMAP.md lists as item 11.
-        evaluate_scene_batch gives the same per-scene results on one
-        device."""
-        raise NotImplementedError(
-            "evaluate_scene_batch_sharded waits for the port of "
-            "parallel/sharding.py (ROADMAP.md item 11); use "
-            "evaluate_scene_batch")
+        """Fleet evaluation with the scene batch sharded over a ('scenes',
+        'frames') mesh of ranks (parallel.make_scene_mesh): each rank owns
+        whole scenes' point tensors plus a shard of each chunk's frame
+        rows, and per-scene metric partials come back summed over the
+        frames axis only (parallel.sharded_scene_batch_metrics).
+
+        SPMD: every rank of the mesh calls this with the same pipelines,
+        loads the ground truth of its own (scene, frame row) shard only,
+        and returns the same full list.  Binary metrics only (association
+        voting keeps the single-device fleet path); results match
+        evaluate_scene_batch per scene.  The scene axis pads to
+        mesh.shape['scenes'] with all-invalid dummy scenes, frame chunks
+        pad to a multiple of mesh.shape['frames'].
+
+        pipelines: list of ClipPipeline (same output size) or a
+            MultiScenePipeline.
+        Returns: list aligned with the input pipelines: a result dict per
+        scene, or None for scenes lacking the source or GT.
+        """
+        import torch.distributed as dist
+
+        from cama_tpu_torch.parallel.sharding import (
+            LocalBlock, mesh_max, sharded_scene_batch_metrics)
+        from cama_tpu_torch.pipeline import MultiScenePipeline
+
+        if self.backend == "host":
+            raise ValueError(
+                "evaluate_scene_batch_sharded is a multi-device program; "
+                "backend='host' has no mesh to shard over; use "
+                "evaluate_scene_batch (which routes host per scene) or "
+                "backend='device'")
+        msp = (pipelines if isinstance(pipelines, MultiScenePipeline)
+               else MultiScenePipeline(pipelines, source=source))
+        members = msp.members(source)
+        fms, Fs, A, B, fv = (v if isinstance(v, list) else v.cpu().numpy()
+                             for v in msp._stacked(source))
+        pipes = [msp.pipelines[i] for i in members]
+        for p in pipes:
+            p.refresh_gt_cache()  # pick up regenerated GT masks
+        h, w = pipes[0].scene.output_size
+        lo, hi = pipes[0]._crop_lo, pipes[0]._crop_hi
+        S = len(pipes)
+        n_scene_shards = mesh.shape["scenes"]
+        n_frame_shards = mesh.shape["frames"]
+        Sp = -(-S // n_scene_shards) * n_scene_shards
+        # frame-chunk rows per dispatch: the fleet chunk, padded to shard
+        K = max(msp.chunk, n_frame_shards)
+        K = -(-K // n_frame_shards) * n_frame_shards
+
+        flats = [p.scene.flat[source] for p in pipes]
+        P = max(len(f.points) for f in flats)
+        pts = np.zeros((Sp, P, 3), np.float32)
+        valid = np.zeros((Sp, P), bool)
+        for i, f in enumerate(flats):
+            pts[i, :len(f.points)] = f.points
+            valid[i, :len(f.valid)] = f.valid
+
+        def padS(a):
+            return np.pad(a, [(0, Sp - S)] + [(0, 0)] * (a.ndim - 1))
+
+        A_p, B_p, fv_p = padS(A), padS(B), padS(fv)
+        padF = (-fv_p.shape[1]) % K  # frame axis to a chunk multiple
+        if padF:
+            A_p = np.pad(A_p, [(0, 0), (0, padF)] + [(0, 0)] * (A_p.ndim - 2))
+            A_p[:, -padF:] = np.eye(4)  # keep pad matrices well-formed
+            B_p = np.pad(B_p, [(0, 0), (0, padF)] + [(0, 0)] * (B_p.ndim - 2))
+            fv_p = np.pad(fv_p, [(0, 0), (0, padF)])
+
+        # fleet-wide crop compaction, same consult-only rule as the other
+        # forms (pipeline.crop_compact_k never dispatches counting)
+        k1 = None
+        if self.compact == "auto":
+            ks = [p.crop_compact_k(source) for p in pipes]
+            if ks and all(k is not None for k in ks):
+                k1 = max(ks)
+                if k1 * 2 > P:
+                    k1 = None
+        # key the step by the mesh's SHAPE, ranks and device, not id(): a
+        # collected mesh's id can be reused by a differently laid out
+        # successor, which would be served a step built for the old axis
+        # extents.  The step runs its collectives on the groups of the mesh
+        # it was built with, so an entry serves a later mesh only while
+        # that mesh has the same group objects (a process group destroyed
+        # and started again hands out new ones)
+        mesh_key = (tuple(mesh.shape.items()), mesh.ranks, str(mesh.device))
+        step_key = (mesh_key, w, h, self.max_radius, self.tolerance,
+                    self.distance, k1)
+        groups = tuple(mesh.group(a) for a in mesh.axis_names)
+        built_on, step = self._sharded_steps.get(step_key, ((), None))
+        if step is None or any(g is not o for g, o in zip(groups, built_on)):
+            step = sharded_scene_batch_metrics(
+                mesh, w, h, self.max_radius, self.tolerance, self.distance,
+                k1=k1)
+            self._sharded_steps[step_key] = groups, step
+
+        # this rank's block of (scene, frame row) pairs
+        S_l, K_l = Sp // n_scene_shards, K // n_frame_shards
+        s_lo, r_lo = mesh.coord("scenes") * S_l, mesh.coord("frames") * K_l
+        sums = np.zeros((S_l, len(PARTIAL_KEYS)))
+        counts = np.zeros(S_l)
+        C = len(pipes[0].scene.camera_list)
+        for s in range(0, fv_p.shape[1], K):
+            # GT rows of this rank's block only; row validity = frame valid
+            # AND complete GT (GT-less rows contribute nothing, matching
+            # evaluate_scene_batch's skip)
+            gt = np.zeros((S_l, K_l, C, h, w), bool)
+            rv = np.zeros((S_l, K_l), bool)
+            with self.timers.phase("eval_gt_load"):
+                for i in range(min(S_l, S - s_lo)):
+                    fm, F = fms[s_lo + i], Fs[s_lo + i]
+                    for j in range(K_l):
+                        fidx = s + r_lo + j
+                        if fidx >= F or not fm.frame_valid[fidx]:
+                            continue
+                        ids = self._load_all_cameras(
+                            pipes[s_lo + i], int(fm.frame_indices[fidx]))
+                        if ids is None:
+                            continue
+                        gt[i, j] = ids > 0
+                        rv[i, j] = True
+                        counts[i] += 1
+            # every rank takes the same branch: a chunk is skipped only
+            # when no rank holds ground truth in it
+            if not mesh_max(mesh, torch.tensor(rv.any()))[0]:
+                continue
+            with self.timers.phase("eval_dispatch"):
+                sl = slice(s, s + K)
+                p = step(pts, valid, LocalBlock(gt), A_p[:, sl], B_p[:, sl],
+                         LocalBlock(rv), lo, hi)
+            with self.timers.phase("eval_fetch"):
+                sums += torch.stack([p[k2] for k2 in PARTIAL_KEYS],
+                                    dim=1).cpu().numpy()
+        # the scene blocks' sums (the same on every rank of a frames line)
+        # and counts (this rank's rows only) -> the whole fleet everywhere
+        counts_t = mesh.all_reduce(torch.from_numpy(counts).to(mesh.device),
+                                   dist.ReduceOp.SUM, ("frames",))
+        block = torch.cat([torch.from_numpy(sums).to(mesh.device),
+                           counts_t[:, None]], dim=1)
+        fleet = mesh.gather(block, "scenes").cpu().numpy()
+
+        results = [None] * len(msp.pipelines)
+        for mi_s, gi in enumerate(members):
+            n_eval = int(fleet[mi_s, -1])
+            if n_eval == 0:
+                continue
+            out = reduce_metrics([dict(zip(PARTIAL_KEYS, fleet[mi_s, :-1]))])
+            out["frames_evaluated"] = n_eval
+            results[gi] = out
+        return results
 
 
 def main(argv=None):

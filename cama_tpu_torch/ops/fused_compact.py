@@ -188,11 +188,14 @@ def camera_counts(vals, count):
     return _live_entries(vals, count).sum(dim=-2, dtype=torch.int32)
 
 
-def rasterize_from_union(vals, count, width, height):
+def rasterize_from_union(vals, count, width, height, prio_offset=0):
     """Dense packed raster [..., C, H, W] int32 from the union list
     vals [..., K, C] int32 and count [...]: rows >= count and zero entries
     become -1 (absent), then ops.raster.rasterize_from_compact paints with
-    the row index as priority."""
+    prio_offset + the row index as priority (a point-sharded caller passes
+    shard_index * K: the kernel's compaction is stable, so the shards'
+    partial rasters keep the global paint order under elementwise max)."""
     cvals = torch.where(_live_entries(vals, count), vals - 1,
                         -1).transpose(-1, -2)
-    return rasterize_from_compact(cvals.contiguous(), width, height)
+    return rasterize_from_compact(cvals.contiguous(), width, height,
+                                  prio_offset=prio_offset)

@@ -173,20 +173,24 @@ def compact_rows(enc, sel, k):
     return out[:, :k]
 
 
-def rasterize_from_compact(vals, width, height):
+def rasterize_from_compact(vals, width, height, prio_offset=0):
     """Dense packed raster from a compacted survivor list.
 
     vals: [..., K] int32 encodings ``pix * MAX_CLS + cls`` (-1 = empty), in
     ascending paint order.  Returns packed [..., H, W] int32: -1 where
-    unpainted, else ``index * MAX_CLS + cls`` of the topmost point covering
-    the pixel."""
+    unpainted, else ``(prio_offset + index) * MAX_CLS + cls`` of the
+    topmost point covering the pixel.  prio_offset: the base paint
+    priority; a point-sharded caller passes shard_index * K, so the partial
+    rasters of contiguous point slices combine by elementwise max in the
+    global paint order."""
     K = vals.shape[-1]
     flat = vals.reshape(-1, K)
     ok = flat >= 0
     pix = torch.where(ok, torch.div(flat, MAX_CLS, rounding_mode="floor"),
                       height * width)
     order = torch.arange(K, dtype=torch.int32, device=vals.device)
-    prio = order * MAX_CLS + torch.where(ok, flat % MAX_CLS, 0)
+    prio = ((prio_offset + order) * MAX_CLS
+            + torch.where(ok, flat % MAX_CLS, 0))
     prio = torch.where(ok, prio, -1).to(torch.int32)
     return _scatter_dilate(pix, prio, width, height, vals.shape[:-1])
 

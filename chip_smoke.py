@@ -159,6 +159,44 @@ next to this script):
        where torch.profiler may drop the card's events, the kernel named
        or device_trace's warning that events are missing.
 
+  9. the multi-device tier (cama_tpu_torch.parallel), lines tagged
+     [mesh], on the wide fixture's 'cama' at full width (every valid
+     frame, every point):
+     - 9a: this process as a world of one rank (NCCL), a 1x1 mesh:
+       sharded_overlay_step with each of its four kernels ('fast',
+       'compact', 'two_stage', 'fused'), each run with the launch counts
+       set to 0 just before it and read just after: rasters byte-equal to
+       ClipPipeline(raster_kernel='fused') and the painted counts equal to
+       its painted pixels, no kernel's plain version run, the 'fused' step
+       launching fused_compact_project (and count_union, which sizes its
+       list); ms a step by CUDA events; with cv2,
+       evaluate_scene_batch_sharded on a 1x1 ('scenes', 'frames') mesh
+       over phase 8's two wide copies (both scenes on the one rank, the
+       crop compaction engaged) within 1e-4 of evaluate_scene_batch.  A
+       1x1 mesh's collectives are identities, so 9a runs no NCCL
+       collective: it checks the mesh's construction under NCCL and the
+       steps' single-rank path;
+     - 9b: four ranks on this one card, each a child process
+       (cama_tpu_torch.tools.mesh_child, launched by the port's
+       run_local_cluster) with backend='gloo' (NCCL refuses two ranks on
+       one device; gloo stages CUDA tensors through host memory):
+       every kernel on the ('frames', 'points') meshes (4, 1), (2, 2) and
+       (1, 4), the gathered rasters byte-equal to 9a's and the counts
+       equal, per rank the ms a step and the all-reduce's ms and share;
+       a 'fused' step whose union list overflows on some point shards
+       raises on every rank; sharded_multi_scene_step over the wide and
+       the default fixture on a (2, 2) ('scenes', 'frames') mesh equal to
+       each scene's solo rasters; sharded_map_metrics (full and
+       crop-compacted) and sharded_scene_batch_metrics on phase 6's seeded
+       ground truth against the unsharded program (sre_sum within 1e-6
+       relative, counts exact); with cv2, evaluate_scene_batch_sharded on
+       phase 8's two wide copies within 1e-4 of evaluate_scene_batch; the
+       cross-host pieces (assign_scenes, run_local_scenes with a failing
+       scene, reduce_metric_partials); and every rank loaded no module of
+       jax or cama_tpu.  Four ranks share one card here: these lines
+       measure correctness and gloo's host-staged collective, not
+       scale-out.
+
 Pipelines of phases 2-4 that are expected to run the counting pass first
 delete the clip's counts sidecar (forget_counts).
 
@@ -2092,6 +2130,412 @@ def qa_checks(dev, card, scene_ref, root, clip, twin):
     if here[0] != 1 or not (here[1] or warned):
         raise RuntimeError("device_trace lost the fused kernel silently")
 
+MESH_RANKS = 4          # phase 9b: gloo ranks sharing the one card
+MESH_SHAPES = ((4, 1), (2, 2), (1, 4))  # ('frames', 'points') meshes of 9b
+MESH_KERNELS = ("fast", "compact", "two_stage", "fused")
+MESH_REPS = 3           # 9b steps per kernel and mesh; the first warms up
+MESH_FRAMES = CHUNK     # frames per scene of 9b's scene and metric steps
+MESH_TOL, MESH_RAD = 5, 20  # phase 6's metric caps
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def step_inputs(pipe, n_frames=None):
+    """A pipeline's 'cama' as the sharded steps' global host arrays: every
+    point and the first n_frames valid frames (all by default).  Returns
+    (arrays, the frames' image indices)."""
+    import numpy as np
+
+    fm = pipe.frame_matrices("cama")
+    fp = pipe.scene.flat["cama"]
+    sel = np.flatnonzero(fm.frame_valid)[:n_frames]
+    h, w = pipe.scene.output_size
+    pad = (0, (-len(fp.points)) % MESH_RANKS)  # invalid points
+    return {"points": np.pad(np.asarray(fp.points, np.float32), (pad, (0, 0))),
+            "valid": np.pad(np.asarray(fp.valid, bool), pad),
+            "cls": np.pad(np.asarray(fp.cls, np.int32), pad),
+            "A": fm.A[sel].astype(np.float32),
+            "B": fm.B[sel].astype(np.float32),
+            "fv": np.ones(len(sel), bool),
+            "lo": np.asarray(pipe._crop_lo, np.float32),
+            "hi": np.asarray(pipe._crop_hi, np.float32),
+            "width": w, "height": h}, [int(fm.frame_indices[i]) for i in sel]
+
+
+def stack_scenes(scenes):
+    """Scenes' step inputs (with the same frame count) stacked [S, ...],
+    points padded with invalid ones to a common P."""
+    import numpy as np
+
+    P = max(len(a["points"]) for a in scenes)
+    out = {key: np.stack([np.pad(a[key], [(0, P - len(a[key]))]
+                                 + [(0, 0)] * (a[key].ndim - 1))
+                          for a in scenes])
+           for key in ("points", "valid", "cls")}
+    out.update({key: np.stack([a[key] for a in scenes])
+                for key in ("A", "B", "fv", "gt") if key in scenes[0]})
+    return {**out, **{key: scenes[0][key]
+                      for key in ("lo", "hi", "width", "height")}}
+
+
+def on_device(a, dev):
+    """Step inputs' point and frame arrays as tensors on dev."""
+    import numpy as np
+    import torch
+
+    return {key: torch.from_numpy(np.asarray(a[key])).to(dev)
+            for key in ("points", "valid", "cls", "A", "B", "fv")}
+
+
+def list_size(a, dev):
+    """The per-camera list size the 'compact' program needs on step inputs
+    a: the pipeline's power-of-two cap over the largest effective count."""
+    from cama_tpu_torch import pipeline as tp
+    from cama_tpu_torch.ops.geometry import project_frames
+    from cama_tpu_torch.ops.raster import effective_counts
+
+    t = on_device(a, dev)
+    w, h = int(a["width"]), int(a["height"])
+    vu, keep = project_frames(t["points"], t["valid"], t["A"], t["B"],
+                              t["fv"], w, h, a["lo"], a["hi"])
+    n = int(effective_counts(vu, keep, t["cls"], w, h).max())
+    return tp._pow2_cap(n, len(a["points"]))
+
+
+def metric_partials(a, gt, dev, k1=None):
+    """The unsharded program's partial sums (float64) over every frame of
+    step inputs a against ground truth gt [F, C, H, W] bool, on dev."""
+    import torch
+
+    from cama_tpu_torch.eval.map_metrics import (PARTIAL_KEYS,
+                                                 frame_metrics_rows)
+    from cama_tpu_torch.ops.geometry import (crop_compact_project_idx,
+                                             project_frames)
+
+    t = on_device(a, dev)
+    geo = (t["points"], t["valid"], t["A"], t["B"], t["fv"], int(a["width"]),
+           int(a["height"]), a["lo"], a["hi"])
+    vu, keep = (crop_compact_project_idx(*geo, k1)[:2] if k1
+                else project_frames(*geo))
+    rows = frame_metrics_rows(torch.from_numpy(gt).to(dev), vu, keep,
+                              MESH_RAD, MESH_TOL)
+    return {k: float(rows[k].to(torch.float64).sum()) for k in PARTIAL_KEYS}
+
+
+def partials_apart(got, want):
+    """(sre_sum's relative difference, the count partials that differ)."""
+    rel = abs(got["sre_sum"] - want["sre_sum"]) / max(abs(want["sre_sum"]),
+                                                     1e-30)
+    return rel, [k for k in want if k != "sre_sum" and got[k] != want[k]]
+
+
+def results_apart(got, want):
+    """(largest difference of the result values, the counts that differ)
+    of two evaluate_scene_batch lists."""
+    worst, counts = 0.0, []
+    for g, w_ in zip(got, want):
+        if (g is None) != (w_ is None):
+            return float("inf"), ["presence"]
+        if g is None:
+            continue
+        worst = max([worst] + [abs(g[k] - w_[k]) for k in
+                               ("SRE", "precision", "recall", "f1")])
+        counts += [k for k in ("n_points", "gt_pixels", "frames_evaluated")
+                   if g[k] != w_[k]]
+    return worst, counts
+
+
+def mesh_phase(clip, dev, card, backend="nccl"):
+    """Phase 9 (module docstring): the multi-device tier.  Raises on any
+    failed check.  Returns the fused kernel's launches on 9a's 'fused'
+    step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from cama_tpu_torch import pipeline as tp
+    from cama_tpu_torch.eval.map_metrics import MapEvaluator
+    from cama_tpu_torch.ops import fused_compact as fc
+    from cama_tpu_torch.parallel import (make_mesh, make_scene_mesh,
+                                         sharded_overlay_step)
+    from cama_tpu_torch.parallel.cluster import free_port, run_local_cluster
+    from cama_tpu_torch.tools.bench_kernels import time_ms
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    pipe = tp.ClipPipeline(clip_path=clip, chunk=CHUNK, raster_kernel="fused",
+                           device=dev)
+    single = dict(pipe.iter_overlay_rasters("cama"))
+    k1 = pipe.crop_compact_k("cama")
+    if k1 is None:
+        raise RuntimeError("the wide fixture did not engage the crop split")
+    a, idxs = step_inputs(pipe)
+    w, h = int(a["width"]), int(a["height"])
+    P, F, C = len(a["points"]), len(idxs), a["B"].shape[1]
+    args = [a[key] for key in ("points", "valid", "cls", "A", "B", "fv",
+                               "lo", "hi")]
+    painted = sum(int((single[i] > 0).sum()) for i in idxs)
+
+    qa = [os.path.join(WORK, "qa", n) for n in ("scene-wide-17",
+                                                 "scene-wide-17b")]
+    qa_pipes = want_eval = None
+    if importlib.util.find_spec("cv2") and all(map(os.path.isdir, qa)):
+        qa_pipes = [tp.ClipPipeline(clip_path=c, chunk=CHUNK, device=dev)
+                    for c in qa]
+        for p in qa_pipes:
+            p.overlay_mode("cama")  # sizes the crop compaction
+        want_eval = MapEvaluator(MESH_TOL, MESH_RAD).evaluate_scene_batch(
+            qa_pipes, "cama")
+
+    # ---- 9a: one rank on the card ----
+    dist.init_process_group(backend,
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    ref, fused_launches = {}, 0
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        for kernel in MESH_KERNELS:
+            step = sharded_overlay_step(
+                mesh, w, h, kernel, k1=k1 if kernel == "two_stage" else None)
+            reset_all_launches()
+            with counting_plain_versions() as plain:
+                rasters, counts = step(*args)
+                sync(dev)
+            launches = all_launches()
+            ref[kernel] = rasters.cpu().numpy(), counts.cpu().numpy()
+            apart = sum(int((ref[kernel][0][j] != single[i]).sum())
+                        for j, i in enumerate(idxs))
+            ms = time_ms(lambda: step(*args), runs=5)
+            say("mesh", f"9a: {dist.get_backend()}, world of 1, 1x1 mesh, "
+                        f"{kernel!r} step over {F} frames x {P} points at "
+                        f"{w}x{h}: pixels apart from ClipPipeline("
+                        f"raster_kernel='fused') {apart} (must be 0); painted "
+                        f"per class {ref[kernel][1].tolist()} (sum "
+                        f"{int(ref[kernel][1].sum())}, painted pixels "
+                        f"{painted}); launches {launches}; plain versions run "
+                        f"{plain or 0}; {ms:.3f} ms a step by CUDA events "
+                        f"(host arrays in: the shard's upload included) | "
+                        f"{card}")
+            if apart or int(ref[kernel][1].sum()) != painted or plain:
+                raise RuntimeError(f"9a {kernel!r} step out of contract")
+            if kernel == "fused":
+                fused_launches = launches["fused_compact_project"]
+                if fused_launches < 1 or launches["count_union"] < 1:
+                    raise RuntimeError("the fused step did not launch the "
+                                       "fused kernel and its count")
+        if want_eval is not None:
+            # both scenes on the one rank, the crop compaction engaged
+            ev = MapEvaluator(MESH_TOL, MESH_RAD)
+            got = ev.evaluate_scene_batch_sharded(
+                qa_pipes, make_scene_mesh(1, 1, device=dev), "cama")
+            worst, differing = results_apart(got, want_eval)
+            k1s = [key[-1] for key in ev._sharded_steps]
+            say("mesh", f"9a evaluate_scene_batch_sharded, 1x1 ('scenes', "
+                        f"'frames') mesh, phase 8's two wide copies on the "
+                        f"one rank: largest difference from "
+                        f"evaluate_scene_batch {worst:.3e} (<= 1e-4), counts "
+                        f"differing {differing}; k1 {k1s}")
+            if worst > 1e-4 or differing or None in k1s:
+                raise RuntimeError("9a evaluate_scene_batch_sharded out of "
+                                   "contract")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 9b: four gloo ranks sharing the card ----
+    np.savez(os.path.join(root, "overlay.npz"), **a)
+    t = on_device(a, dev)
+    q = P // MESH_RANKS
+    maxima = sorted(int(fc.count_union(
+        t["points"][i * q:(i + 1) * q], t["valid"][i * q:(i + 1) * q],
+        t["cls"][i * q:(i + 1) * q], t["A"], t["B"], t["fv"], w, h,
+        a["lo"], a["hi"]).max()) for i in range(MESH_RANKS))
+    if maxima[0] == maxima[-1]:
+        raise RuntimeError("the point shards' union lists are alike")
+    k_over = (maxima[0] + maxima[-1]) // 2
+    default_clip = os.path.join(WORK, "default", "scene-default")
+    scene_pipes = [pipe, tp.ClipPipeline(clip_path=default_clip, chunk=CHUNK,
+                                         raster_kernel="fused", device=dev)]
+    scene_in = [step_inputs(p, MESH_FRAMES) for p in scene_pipes]
+    k_scenes = max(list_size(s, dev) for s, _ in scene_in)
+    gts = [synthetic_gt_ids((MESH_FRAMES, C, h, w), seed=6 + s) > 0
+           for s in range(len(scene_in))]
+    scenes = stack_scenes([{**s, "gt": g} for (s, _), g in zip(scene_in,
+                                                               gts)])
+    np.savez(os.path.join(root, "scenes.npz"), **scenes)
+    one = {**scene_in[0][0], "gt": gts[0]}
+    np.savez(os.path.join(root, "map.npz"), **one)
+    want_map = {k1_: metric_partials(one, gts[0], dev, k1_)
+                for k1_ in (None, k1)}
+    want_scenes = [metric_partials(s, g, dev) for (s, _), g in zip(scene_in,
+                                                                   gts)]
+    solo = [single, dict(scene_pipes[1].iter_overlay_rasters("cama"))]
+
+    jobs = [{"kind": "overlay", "name": f"{kern}_{f}x{p}",
+             "inputs": os.path.join(root, "overlay.npz"), "shape": [f, p],
+             "kernel": kern, "k1": k1 if kern == "two_stage" else None,
+             "reps": MESH_REPS, "collective": p > 1}
+            for f, p in MESH_SHAPES for kern in MESH_KERNELS]
+    jobs += [{"kind": "overflow", "name": "overflow",
+              "inputs": os.path.join(root, "overlay.npz"), "shape": [1, 4],
+              "kernel": "fused", "k": k_over},
+             {"kind": "multi_scene", "name": "scenes",
+              "inputs": os.path.join(root, "scenes.npz"), "shape": [2, 2],
+              "k": k_scenes}]
+    jobs += [{"kind": "map_metrics", "name": f"map_{k1_}",
+              "inputs": os.path.join(root, "map.npz"), "shape": [4, 1],
+              "max_radius": MESH_RAD, "tolerance": MESH_TOL, "k1": k1_}
+             for k1_ in (None, k1)]
+    jobs += [{"kind": "scene_metrics", "name": "scene_metrics",
+              "inputs": os.path.join(root, "scenes.npz"), "shape": [2, 2],
+              "max_radius": MESH_RAD, "tolerance": MESH_TOL}]
+    if want_eval is not None:
+        jobs.append({"kind": "evaluate", "name": "evaluate", "clips": qa,
+                     "shape": [2, 2], "chunk": CHUNK, "tolerance": MESH_TOL,
+                     "max_radius": MESH_RAD})
+    jobs.append({"kind": "multihost", "name": "multihost"})
+    plan = {"world": MESH_RANKS, "port": free_port(), "backend": "gloo",
+            "device": (str(dev) if dev.type == "cpu"
+                       else f"cuda:{dev.index or 0}"),
+            "out": root, "jobs": jobs}
+    with open(os.path.join(root, "plan.json"), "w") as f:
+        json.dump(plan, f)
+    say("mesh", f"9b: prepared in {time.perf_counter() - t_phase:.1f} s; "
+                f"{MESH_RANKS} ranks, backend gloo, every rank on "
+                f"{plan['device']}: FOUR RANKS SHARE ONE CARD HERE, so the "
+                f"times below measure correctness and gloo's host-staged "
+                f"collective, not scale-out")
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    outs = run_local_cluster(
+        [[sys.executable, "-m", "cama_tpu_torch.tools.mesh_child",
+          os.path.join(root, "plan.json"), str(r)]
+         for r in range(MESH_RANKS)], env=env, timeout=480)
+    secs = time.perf_counter() - t0
+    mesh_checks(outs, root, ref, k_over, maxima, solo, scene_in, want_map,
+                want_scenes, want_eval, card)
+    say("mesh", f"9b: the cluster ran in {secs:.1f} s (the ranks' jobs "
+                f"{max(o['seconds'] for o in outs):.1f} s); phase 9 took "
+                f"{time.perf_counter() - t_phase:.1f} s")
+    return fused_launches
+
+
+def mesh_checks(outs, root, ref, k_over, maxima, solo, scene_in, want_map,
+                want_scenes, want_eval, card):
+    """The checks of phase 9b on the ranks' payloads and rank 0's
+    gathered arrays."""
+    import numpy as np
+
+    def job(name):
+        return [o["jobs"][name] for o in outs]
+
+    def gathered(name):
+        with np.load(os.path.join(root, f"{name}.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    bad = []
+    for o in outs:
+        if o["modules"] or o["backend"] != "gloo":
+            bad.append(f"rank {o['rank']}: backend {o['backend']}, modules "
+                       f"{o['modules'][:5]}")
+    for f, p in MESH_SHAPES:
+        for kern in MESH_KERNELS:
+            name = f"{kern}_{f}x{p}"
+            got = gathered(name)
+            apart = int((got["rasters"] != ref[kern][0]).sum())
+            counts_eq = bool((got["counts"] == ref[kern][1]).all())
+            ranks = job(name)
+            ms = [round(statistics.median(r["ms"][1:]), 3) for r in ranks]
+            line = (f"9b mesh {f}x{p} {kern!r}: pixels apart from 9a {apart}"
+                    f" (must be 0), counts equal {counts_eq}; ms a step per "
+                    f"rank {ms}")
+            if p > 1:
+                ar = [round(r["allreduce_ms"], 3) for r in ranks]
+                share = [round(100 * x / y, 1) for x, y in zip(ar, ms)]
+                line += (f"; all_reduce(MAX) of the packed raster over "
+                         f"'points' ({ranks[0]['allreduce_bytes']} B a rank) "
+                         f"ms per rank {ar} = {share} % of the step")
+            if kern == "fused":
+                fl = [r["launches"]["fused_compact_project"] for r in ranks]
+                line += f"; fused_compact_project launches per rank {fl}"
+                if min(fl) < 1:
+                    bad.append(f"{name}: the fused kernel did not launch")
+            say("mesh", f"{line} | 4 ranks on one card | {card}")
+            if apart or not counts_eq:
+                bad.append(f"{name}: {apart} pixels apart, counts "
+                           f"{got['counts'].tolist()}")
+    over = job("overflow")
+    say("mesh", f"9b overflow, fused k={k_over} on the (1, 4) mesh (point "
+                f"shards' union maxima {maxima}): raised on every rank "
+                f"{all(r['raised'] for r in over)}, the ranks' own maxima "
+                f"{[r['local_max'] for r in over]}; message "
+                f"{over[0]['message']!r}")
+    if not all(r["raised"] for r in over):
+        bad.append("the overflow did not raise on every rank")
+    got = gathered("scenes")["rasters"]
+    apart = sum(int((got[s, j] != solo[s][i]).sum())
+                for s, (_, idxs) in enumerate(scene_in)
+                for j, i in enumerate(idxs))
+    say("mesh", f"9b sharded_multi_scene_step, (2, 2) ('scenes', 'frames') "
+                f"mesh, wide + default fixture x {MESH_FRAMES} frames: pixels "
+                f"apart from each scene's solo ClipPipeline rasters {apart} "
+                f"(must be 0); ms per rank "
+                f"{[round(r['ms'][0], 3) for r in job('scenes')]}")
+    if apart:
+        bad.append(f"multi-scene: {apart} pixels apart")
+    for k1_, want in want_map.items():
+        sums = job(f"map_{k1_}")
+        rel, counts = partials_apart(sums[0]["sums"], want)
+        alike = all(r["sums"] == sums[0]["sums"] for r in sums)
+        say("mesh", f"9b sharded_map_metrics, (4, 1) mesh, k1 {k1_}: "
+                    f"sre_sum relative difference from the unsharded program "
+                    f"{rel:.3e} (<= 1e-6), count partials differing {counts},"
+                    f" the same on every rank {alike}; {sums[0]['sums']}")
+        if rel > 1e-6 or counts or not alike:
+            bad.append(f"map metrics k1={k1_}")
+    sums = job("scene_metrics")[0]["sums"]
+    for s, want in enumerate(want_scenes):
+        rel, counts = partials_apart({k: v[s] for k, v in sums.items()},
+                                     want)
+        say("mesh", f"9b sharded_scene_batch_metrics, (2, 2) mesh, scene "
+                    f"{s}: sre_sum relative difference {rel:.3e} (<= 1e-6), "
+                    f"count partials differing {counts}")
+        if rel > 1e-6 or counts:
+            bad.append(f"scene metrics, scene {s}")
+    if want_eval is None:
+        say("mesh", "9b evaluate_scene_batch_sharded: left out (no cv2 or "
+                    "no phase 8 clips)")
+    else:
+        ev = job("evaluate")
+        worst, counts = results_apart(ev[0]["results"], want_eval)
+        alike = all(r["results"] == ev[0]["results"] for r in ev)
+        say("mesh", f"9b evaluate_scene_batch_sharded on phase 8's two wide "
+                    f"copies, (2, 2) mesh: largest difference from "
+                    f"evaluate_scene_batch {worst:.3e} (<= 1e-4), counts "
+                    f"differing {counts}, the same list on every rank "
+                    f"{alike}; ms per rank "
+                    f"{[round(r['ms'][0], 1) for r in ev]}; k1 "
+                    f"{ev[0]['k1']}")
+        if worst > 1e-4 or counts or not alike:
+            bad.append("evaluate_scene_batch_sharded")
+    mh = job("multihost")
+    ok = (all(r["scene_rasters_ok"] and r["scene_metrics_ok"] for r in mh)
+          and all(r["totals"] == mh[0]["totals"] for r in mh)
+          and sorted(sum((r["failed_scenes"] for r in mh), [])) == ["c"])
+    say("mesh", f"9b multihost across the ranks: totals {mh[0]['totals']}, "
+                f"failed scenes {[r['failed_scenes'] for r in mh]}, hosts sum "
+                f"{mh[0]['hosts_sum']}, scene steps across ranks ok {ok}")
+    if not ok:
+        bad.append("multihost")
+    if bad:
+        raise RuntimeError(f"phase 9b out of contract: {bad}")
+
+
 def main():
     import numpy as np
     import torch
@@ -2733,6 +3177,9 @@ def main():
     # ---- phase 8: device compositing, the QA report and the tools ----
     qa_phase(dev, card, scene_ref)
 
+    # ---- phase 9: the multi-device tier ----
+    mesh_launches = mesh_phase(clip, dev, card)
+
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))
     say("env", f"modules of jax or of the JAX package cama_tpu loaded: "
@@ -2761,13 +3208,13 @@ def main():
         # CUDA events around one call, the host's enqueue included;
         # device_ms: the call's kernels and memsets alone (a CUDA graph).
         # launches: the main path's (the sparse stream), counting pass
-        # included
+        # included; mesh_launches: phase 9a's 'fused' sharded step's
         entry("fused_compact_project", fused_src,
               "cama_tpu/ops/fused_compact.py:241",
               sp_launches["fused_compact_project"], fused_err,
               ms_k * per, ms_r * per, bound_k * per, by_k, None,
               launches_per_call["fused_compact_project"], per,
-              unit="ms/frame"),
+              unit="ms/frame", mesh_launches=mesh_launches),
         # the same kernel without the writes, which sizes k on the main
         # path (the JAX package counts with XLA: pipeline.py:447)
         entry("count_union", fused_src, "cama_tpu/pipeline.py:447",

@@ -290,8 +290,27 @@ def test_main_prints_one_json_line(clips, capsys, tmp_path):
 
 
 def test_sharded_batch_waits_for_its_item(clips):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.MapEvaluator().evaluate_scene_batch_sharded([], mesh=None)
+    """The sharded fleet evaluation is no longer waiting for the port of
+    parallel/ (ROADMAP item 11): on a one-rank ('scenes', 'frames') mesh
+    in this process it gives evaluate_scene_batch's results, and its step
+    cache is keyed by the mesh's layout, so a new mesh object of the same
+    layout reuses the step."""
+    from cama_tpu_torch.parallel import make_scene_mesh
+
+    pipes = [_pipe(clips["plain"]), _pipe(clips["shifted"])]
+    ev = tm.MapEvaluator(tolerance=4, max_radius=16)
+    want = ev.evaluate_scene_batch(pipes, "cama")
+    for _ in range(2):
+        got = ev.evaluate_scene_batch_sharded(
+            pipes, make_scene_mesh(1, 1, device="cpu"), "cama")
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert {k: g[k] for k in EXACT_KEYS} == {k: w[k]
+                                                     for k in EXACT_KEYS}
+            for key in ("SRE", "precision", "recall", "f1"):
+                assert abs(g[key] - w[key]) <= ABS_TOL, key
+    assert [k[0] for k in ev._sharded_steps] == [
+        ((("scenes", 1), ("frames", 1)), (0,), "cpu")]
 
 
 def test_evaluator_rejects_unknown_settings():

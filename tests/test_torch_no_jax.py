@@ -17,8 +17,12 @@ _CHILD = textwrap.dedent("""
     import numpy as np
     import cama_tpu_torch.cli
     import cama_tpu_torch.ops.paint
+    import cama_tpu_torch.parallel
+    import cama_tpu_torch.parallel.cluster
+    import cama_tpu_torch.parallel.multihost
     import cama_tpu_torch.pipeline as tp
     import cama_tpu_torch.tools.bench_kernels
+    import cama_tpu_torch.tools.mesh_child
     from cama_tpu_torch.io.fixture import make_fixture_clip
 
     clip = make_fixture_clip(tempfile.mkdtemp(), n_frames=3,
@@ -28,6 +32,14 @@ _CHILD = textwrap.dedent("""
                                device="cpu")
         rasters = dict(pipe.iter_overlay_rasters("cama"))
         assert len(rasters) >= 2 and all(r.any() for r in rasters.values())
+    # the sharded fused step on a one-rank mesh, no process group
+    st = pipe.scene_tensors("cama")
+    h, w = pipe.scene.output_size
+    step = cama_tpu_torch.parallel.sharded_overlay_step(
+        cama_tpu_torch.parallel.make_mesh(1, 1, device="cpu"), w, h, "fused")
+    sharded, _ = step(st.points, st.valid, st.cls, st.A, st.B,
+                      st.frame_valid, pipe._crop_lo, pipe._crop_hi)
+    assert sharded.any()
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -72,7 +84,10 @@ _CHILD_NO_CAMA_TPU = textwrap.dedent("""
     import os, sys, tempfile
     sys.modules["cama_tpu"] = None  # any `import cama_tpu...` now raises
     import yaml
+    import cama_tpu_torch.parallel.cluster
+    import cama_tpu_torch.parallel.multihost
     import cama_tpu_torch.pipeline as tp
+    import cama_tpu_torch.tools.mesh_child
     from cama_tpu_torch import native
     from cama_tpu_torch.cli import main
     from cama_tpu_torch.io.fixture import make_fixture_clip
@@ -490,7 +505,12 @@ def test_port_sources_never_load_cama_tpu():
             "cama_tpu_torch/report.py", "cama_tpu_torch/doctor.py",
             "cama_tpu_torch/warmup.py", "cama_tpu_torch/profiling.py",
             "cama_tpu_torch/ops/undistort.py",
-            "cama_tpu_torch/tools/profiler_loss.py"} <= scanned
+            "cama_tpu_torch/tools/profiler_loss.py",
+            "cama_tpu_torch/parallel/__init__.py",
+            "cama_tpu_torch/parallel/sharding.py",
+            "cama_tpu_torch/parallel/multihost.py",
+            "cama_tpu_torch/parallel/cluster.py",
+            "cama_tpu_torch/tools/mesh_child.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -517,5 +537,8 @@ def test_port_sources_never_import_jax():
             "aggregate/__init__.py", "aggregate/lidar.py", "aggregate/site.py",
             "se3/core.py", "se3/codec.py", "se3/trajectory.py", "report.py",
             "doctor.py", "warmup.py", "profiling.py", "ops/raster.py",
-            "ops/undistort.py", "tools/profiler_loss.py"} <= scanned, \
+            "ops/undistort.py", "tools/profiler_loss.py",
+            "parallel/__init__.py", "parallel/sharding.py",
+            "parallel/multihost.py", "parallel/cluster.py",
+            "tools/mesh_child.py"} <= scanned, \
         sorted(scanned)
