@@ -8,18 +8,25 @@ with the same function names, on this package's pipeline and kernels.
 Stages, in order (each but the first can be switched off with its
 environment variable set to 0):
 
-  core pipeline   bench_ours: the headline (device_resident_fps, the
-                  pipeline's dense program with the rasters left on the
-                  device), the overlay stream, the frame stream, and both
-                  overlay videos written by write_videos, cold and warm
+  core pipeline   bench_ours on a raster_kernel='compact' pipeline, as
+                  bench.py builds it: the headline (device_resident_fps,
+                  the single-stage 'compact' dense program with the rasters
+                  left on the device), the same on the fused kernel
+                  (details.device_resident_fps_fused, the port's own key),
+                  the overlay stream, the frame stream, and both overlay
+                  videos written by write_videos, cold and warm
   CAMA_BENCH_MULTI     bench_multi_scene: MultiScenePipeline's batched
                        program against one scene at a time
   CAMA_BENCH_EVAL      bench_map_eval: warm MapEvaluator.evaluate_scene
-  CAMA_BENCH_WIDE      bench_wide_scene and bench_wide_eval on the
-                       253,952-point fixture (get_wide_fixture)
+  CAMA_BENCH_WIDE      bench_wide_scene ('production': the fused
+                       program, as the JAX package's rule serves it there)
+                       and bench_wide_eval on the 253,952-point fixture
+                       (get_wide_fixture)
   CAMA_BENCH_DEVICE    bench_device_compute: the wide scene tiled to
-                       1,048,576 points, the 'fused', 'pallas' and
-                       two-stage programs by CUDA events and by a CUDA graph
+                       1,048,576 points, the two-stage program
+                       (device_ms_per_frame, as in bench.py), the
+                       single-stage 'compact', 'fused' and 'pallas' ones,
+                       by CUDA events and by a CUDA graph
   CAMA_BENCH_CLI       bench_cli_first_frame: the port's CLI in a child
                        process, seconds to its first video frame
   CAMA_BENCH_VALIDATE  run_validate: cama_tpu_torch.validate over every
@@ -29,7 +36,9 @@ The reference loop (bench_reference) runs when CAMA_REFERENCE_ROOT names a
 checkout of the original CAMA; vs_baseline is null otherwise.  Fixture clips
 are built on first use under CAMA_BENCH_DIR (default: build/bench in the
 checkout).  CAMA_BENCH_FRAMES (65) and CAMA_BENCH_CHUNK (64) size the
-headline clip and the headline's chunk.
+headline clip and the headline's chunk.  Every key that bench.py prints
+times bench.py's program for it; the port's other lanes have keys of their
+own (device_resident_fps_fused, device_ms_per_frame_{fused,pallas}).
 
 Prints ONE JSON line last: {"metric": "6cam_full_scene_reprojection_fps",
 "value", "unit", "vs_baseline", "details"}.  A stage that raises is listed in
@@ -57,11 +66,17 @@ FIXTURE_ROOT = os.environ.get("CAMA_BENCH_DIR",
                               os.path.join(REPO, "build", "bench"))
 # benchmark-definition version of this package's line: bumped whenever a
 # metric's measurement recipe changes
-BENCH_DEF = 1
+BENCH_DEF = 2  # 2: each bench.py key times bench.py's program
 # 65 raw frames -> 64 processable (the reference loop starts at index 1)
 N_FRAMES = int(os.environ.get("CAMA_BENCH_FRAMES", "65"))
 N_POINTS = 1_048_576  # the device lane's tiled point count
 REFERENCE_ROOT = os.environ.get("CAMA_REFERENCE_ROOT")
+# the card's HBM peak (H100 SXM data sheet), the bytes model's denominator
+HBM_PEAK_GBPS = 3350.0
+# the JAX package's rule for serving the fused kernel
+# (cama_tpu/pipeline.py:_finish_overlay_mode): a union list within its
+# on-chip budget, and pixel codes within 24 bits
+FUSED_K_LIMIT, FUSED_K_BLOCK = 262144, 128
 REF_FRAME_BUDGET = int(os.environ.get("CAMA_BENCH_REF_FRAMES", "20"))
 REF_REPEATS = int(os.environ.get("CAMA_BENCH_REF_REPEATS", "3"))
 CAMERAS = ["camera_front_left", "camera_front", "camera_front_right",
@@ -185,16 +200,65 @@ def bench_reference(clip, max_frames, with_video=False, video_path=None):
     return fps or None
 
 
-def device_resident_fps(pipe, source="cama", bench_chunk=64, tile_to=None):
-    """Frames/s of the pipeline's own dense program (its raster_kernel
-    lane, list sizes from its counting pass) with the rasters left on the
-    device: only one checksum a chunk comes back.
+def dense_program(pipe, source, kernel):
+    """(program, limit, served): program(A, B, frame_valid) -> (class
+    rasters, list counts) of bench.py's `kernel` over frame matrices on the
+    device, the list size(s) its counts are held against, and the program
+    it serves.  Sizes come from the pipeline's counting pass.
+
+    'compact': the single-stage program at the per-camera list size, even
+    where the counting pass engaged the two-stage split; 'production': the
+    fused program at the union cap where the JAX package's rule serves it
+    (fused_serves), else two-stage where the split engaged, else
+    'compact'; 'fused' and 'pallas': the port's own lanes, at the union
+    cap and the per-camera size."""
+    from cama_tpu_torch import pipeline as tp
+
+    st = pipe.scene_tensors(source)
+    h, w = pipe.scene.output_size
+    _, k = pipe.overlay_mode(source)
+    ku, k1 = pipe._fused_k[source], pipe._two_stage[source]
+    if kernel == "production":
+        kernel = ("fused" if fused_serves(ku, w, h) else
+                  "two_stage" if k1 is not None else "compact")
+
+    def args(A, B, frame_valid):
+        return (st.points, st.valid, st.cls, A, B, frame_valid,
+                pipe._crop_lo, pipe._crop_hi, w, h)
+
+    if kernel == "two_stage":
+        return (lambda A, B, fv: tp._overlay_chunk_two_stage(
+            *args(A, B, fv), k1, min(k, k1), False),
+            np.asarray([k1, min(k, k1)]), kernel)
+    sizes = {"compact": k, "fused": ku, "pallas": k}
+    if kernel not in sizes:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return (lambda A, B, fv: tp._overlay_chunk_lists(
+        kernel, *args(A, B, fv), sizes[kernel], False), sizes[kernel], kernel)
+
+
+def fused_serves(k_union, width, height):
+    """Whether the JAX package serves the fused kernel at this union cap
+    and output size."""
+    from cama_tpu_torch.ops.raster import MAX_CLS
+
+    return (k_union + FUSED_K_BLOCK <= FUSED_K_LIMIT
+            and width * height * MAX_CLS < 1 << 24)
+
+
+def device_resident_fps(pipe, source="cama", bench_chunk=64,
+                        kernel="compact", tile_to=None):
+    """Frames/s of bench.py's `kernel` program (dense_program) with the
+    rasters left on the device: only one checksum a chunk comes back.  The
+    first pass holds every chunk's list counts against their sizes.
 
     tile_to=N repeats the scene's real frames to N before chunking, so a
     short fixture measures enough chunks in flight; pad frames (identity A,
     zero B, frame_valid False) fill the last chunk and count as frames, as
     in bench.py."""
     import torch
+
+    from cama_tpu_torch import pipeline as tp
 
     fm = pipe.frame_matrices(source)
     A, B, fv = fm.A, fm.B, fm.frame_valid
@@ -211,15 +275,20 @@ def device_resident_fps(pipe, source="cama", bench_chunk=64, tile_to=None):
     B = np.concatenate([B, np.zeros((pad,) + B.shape[1:])]).astype(np.float32)
     fv = np.concatenate([fv, np.zeros(pad, bool)])
     A, B, fv = (torch.from_numpy(a).to(pipe.device) for a in (A, B, fv))
-    program, _ = pipe._dense_chunk_program(source, two_bit=False)
+    program, limit, served = dense_program(pipe, source, kernel)
+    starts = range(0, len(fv), bench_chunk)
 
     def one_pass():
         sums = [program(A[s:s + bench_chunk], B[s:s + bench_chunk],
                         fv[s:s + bench_chunk])[0].sum(dtype=torch.int64)
-                for s in range(0, len(fv), bench_chunk)]
+                for s in starts]
         return torch.stack(sums).cpu()
 
-    one_pass()  # first-use allocations
+    for s in starts:  # first-use allocations; the lists checked
+        counts = program(A[s:s + bench_chunk], B[s:s + bench_chunk],
+                         fv[s:s + bench_chunk])[1].cpu().numpy()
+        tp._check_lists(f"device_resident_fps {source}", served, s, counts,
+                        limit)
     for _ in range(2):  # the second pass is the steady state
         t0 = time.perf_counter()
         one_pass()
@@ -228,16 +297,20 @@ def device_resident_fps(pipe, source="cama", bench_chunk=64, tile_to=None):
 
 
 def bench_ours(clip, device="cuda"):
-    """The core stage on the headline fixture, with the pipeline the CLI
-    builds (raster_kernel 'auto', which serves 'fused'): (frame stream
-    fps, overlay stream fps, device-resident fps, both videos warm fps,
-    both videos cold fps, frames of the last frame stream)."""
+    """The core stage on the headline fixture, on bench.py's pipeline
+    (raster_kernel 'compact': its streams and videos serve the 'compact'
+    lane): (frame stream fps, overlay stream fps, device-resident fps of
+    the single-stage 'compact' program, both videos warm fps, both videos
+    cold fps, frames of the last frame stream, device-resident fps of the
+    fused program)."""
     from cama_tpu_torch.pipeline import ClipPipeline
 
-    pipe = ClipPipeline(clip_path=clip, chunk=8, raster_kernel="auto",
+    pipe = ClipPipeline(clip_path=clip, chunk=8, raster_kernel="compact",
                         device=device)
-    dev_fps = device_resident_fps(
-        pipe, "cama", int(os.environ.get("CAMA_BENCH_CHUNK", "64")))
+    bench_chunk = int(os.environ.get("CAMA_BENCH_CHUNK", "64"))
+    dev_fps = device_resident_fps(pipe, "cama", bench_chunk)
+    dev_fps_fused = device_resident_fps(pipe, "cama", bench_chunk,
+                                        kernel="fused")
 
     # overlay streaming: the dense program and the rasters' download
     list(pipe.iter_overlay_rasters("cama"))  # first-use allocations
@@ -255,7 +328,8 @@ def bench_ours(clip, device="cuda"):
     dual_cold_fps = 0.0
     for _ in range(2):
         with _work_dir() as td:
-            cold = ClipPipeline(clip_path=clip, chunk=8, device=device,
+            cold = ClipPipeline(clip_path=clip, chunk=8,
+                                raster_kernel="compact", device=device,
                                 configs={"frame_cache_dir":
                                          os.path.join(td, "fc")})
             t0 = time.perf_counter()
@@ -288,7 +362,8 @@ def bench_ours(clip, device="cuda"):
             return write_both(pipe, td)
 
     dual_fps = _best_rate(dual)
-    return e2e_fps, stream_fps, dev_fps, dual_fps, dual_cold_fps, n_frames[0]
+    return (e2e_fps, stream_fps, dev_fps, dual_fps, dual_cold_fps,
+            n_frames[0], dev_fps_fused)
 
 
 def _warm_eval_fps(clip, device, tries):
@@ -328,16 +403,18 @@ def bench_wide_eval(clip, device="cuda"):
 
 
 def bench_wide_scene(n_frames=17, device="cuda", bench_chunk=16, tile_to=64):
-    """The compute-bound regime: the wide scene's dense program on the
-    device, with the rasters left there, its frames tiled to `tile_to` in
-    chunks of `bench_chunk`.  Returns (fps, valid points, clip)."""
+    """The compute-bound regime: the wide scene's 'production' program
+    (the fused kernel there, as in the JAX package) on the device, with
+    the rasters left there, its frames tiled to `tile_to` in chunks of
+    `bench_chunk`.  Returns (fps, valid points, clip)."""
     from cama_tpu_torch.pipeline import ClipPipeline
 
     clip = get_wide_fixture(n_frames)
-    pipe = ClipPipeline(clip_path=clip, chunk=8, raster_kernel="auto",
+    pipe = ClipPipeline(clip_path=clip, chunk=8, raster_kernel="compact",
                         device=device)
     n_points = int(np.asarray(pipe.scene.flat["cama"].valid).sum())
-    fps = device_resident_fps(pipe, "cama", bench_chunk, tile_to)
+    fps = device_resident_fps(pipe, "cama", bench_chunk, kernel="production",
+                              tile_to=tile_to)
     return fps, n_points, clip
 
 
@@ -387,17 +464,22 @@ def _times_ms(fn, device):
 def bench_device_compute(n_target_points=None, chunk=16, device="cuda"):
     """The device's own time on the kernels: the wide scene tiled to
     n_target_points (default N_POINTS) as one chunk of `chunk` frames, and
-    the dense programs of three lanes over it: 'fused' (the fused CUDA
-    kernel, then the raster stage), 'pallas' (the CUDA projection kernel,
-    then compaction and the raster stage) and the 'compact' lane's
-    crop-first two-stage program (plain PyTorch).  List sizes come from
-    counting on the same tiled inputs, by the pipeline's rule, so no list
-    overflows.  Each program is timed by CUDA events around one call and
-    on the card alone (a CUDA graph of 20 calls); ms per frame.  With
+    four dense programs over it: the 'compact' lane's crop-first two-stage
+    program (plain PyTorch; bench.py's device_ms_per_frame, the program
+    the JAX counting pass engages at this span), its single-stage program
+    ('compact'), 'fused' (the fused CUDA kernel, then the raster stage)
+    and 'pallas' (the CUDA projection kernel, then compaction and the
+    raster stage).  List sizes come from counting on the same tiled
+    inputs, by the pipeline's rule, so no list overflows.  Each program is
+    timed by CUDA events around one call and on the card alone (a CUDA
+    graph of 20 calls); ms per frame.  With
     them, the kernel launches of one call of each lane's program (the
     call whose lists are checked): the timed calls, whose captured
     wrapper calls launch nothing and whose graph replays pass no wrapper,
-    are not counted."""
+    are not counted.  With bench.py's bytes model, a lower bound on the
+    achieved HBM rate: P * (12 + 1 + 1 + 8) bytes a frame (positions,
+    class, validity, the crop pass's scan state) over the two-stage time,
+    and its share of HBM_PEAK_GBPS."""
     import torch
 
     from cama_tpu_torch import pipeline as tp
@@ -423,12 +505,14 @@ def bench_device_compute(n_target_points=None, chunk=16, device="cuda"):
     k1, k2 = tp._pow2_cap(k_crop, P), tp._pow2_cap(k_cam, P)
     chunk_args = (*args, lo, hi, w, h)
     programs = {
-        "fused": (lambda: tp._overlay_chunk_fused(*chunk_args, ku, False),
-                  ku),
-        "pallas": (lambda: tp._overlay_chunk_pallas(*chunk_args, k2, False),
-                   k2),
         "two_stage": (lambda: tp._overlay_chunk_two_stage(
             *chunk_args, k1, min(k1, k2), False), np.asarray([k1, min(k1, k2)])),
+        "compact": (lambda: tp._overlay_chunk_lists(
+            "compact", *chunk_args, k2, False), k2),
+        "fused": (lambda: tp._overlay_chunk_lists(
+            "fused", *chunk_args, ku, False), ku),
+        "pallas": (lambda: tp._overlay_chunk_lists(
+            "pallas", *chunk_args, k2, False), k2),
     }
     out, launches = {}, {}
     for lane, (fn, limit) in programs.items():
@@ -441,13 +525,16 @@ def bench_device_compute(n_target_points=None, chunk=16, device="cuda"):
         out[f"device_ms_per_frame_{lane}"] = ms / chunk
         out[f"device_card_ms_per_frame_{lane}"] = (
             None if card_ms is None else card_ms / chunk)
-    s_prod = out["device_ms_per_frame_fused"] / 1e3
+    s_prod = out["device_ms_per_frame_two_stage"] / 1e3
+    gbps = P * (12 + 1 + 1 + 8) / s_prod / 1e9
     _sync(device)
     return {
-        "device_ms_per_frame": out["device_ms_per_frame_fused"],
+        "device_ms_per_frame": out["device_ms_per_frame_two_stage"],
         **out,
         "device_lane_points": P,
         "device_pts_per_sec": P / s_prod,
+        "hbm_gbps_lower_bound": gbps,
+        "hbm_util_lower_bound": gbps / HBM_PEAK_GBPS,
         "device_lane_chunk": chunk,
         "device_lane_k": {"union": ku, "crop": k1, "camera": k2},
         "device_lane_launches": launches,
@@ -684,8 +771,8 @@ def main(argv=None):
     clip = get_fixture()
     core = _optional_stage("core pipeline", None,
                            lambda: bench_ours(clip, device),
-                           (None,) * 6, state)
-    e2e_fps, stream_fps, dev_fps, dual_fps, dual_cold_fps, n = core
+                           (None,) * 7, state)
+    e2e_fps, stream_fps, dev_fps, dual_fps, dual_cold_fps, n, dev_fused = core
     ms_batched, ms_seq = _optional_stage(
         "multi-scene batching", "CAMA_BENCH_MULTI",
         lambda: bench_multi_scene(device=device), (None, None), state)
@@ -727,6 +814,8 @@ def main(argv=None):
     ref_video_fps = float(np.mean(ref_video_runs)) if ref_video_runs else None
     on_card = device.type == "cuda"
     details = {
+        # the headline's program on the fused kernel (the port's own key)
+        "device_resident_fps_fused": _round(dev_fused),
         # the pipeline's dense program and the 2-bit rasters' download
         "overlay_stream_fps": _round(stream_fps),
         # frames in the serving mode with host compositing, no encode
@@ -738,6 +827,8 @@ def main(argv=None):
                                    if dual_fps and ref_video_fps else None),
         "reference_video_write_fps": _round(ref_video_fps, 3),
         "reference_cpu_fps": _round(ref_fps, 3),
+        "reference_cpu_fps_min": _round(min(ref_runs or [None]), 3),
+        "reference_cpu_fps_max": _round(max(ref_runs or [None]), 3),
         "reference_repeats": len(ref_runs) if ref_runs else 0,
         "multi_scene_stream_fps_batched": _round(ms_batched),
         "multi_scene_stream_fps_sequential": _round(ms_seq),
@@ -756,7 +847,8 @@ def main(argv=None):
                         else "cpu"),
         # the card's name and power limit, as nvidia-smi gives them
         "card": bench_kernels.card_line() if on_card else None,
-        "raster_kernel": "auto",
+        # the lane of the headline's pipeline, its streams and videos
+        "raster_kernel": "compact",
         "native_compositor": native.available(),
         "skipped": state["skipped"],
         "failures": state["failures"],

@@ -414,6 +414,12 @@ class ClipPipeline:
         'fused', the JAX package's production preference once its warm-up
         is done: cama_tpu's 'auto' streams a host lane only to hide XLA's
         compile wall, and PyTorch runs eagerly with no such wall.
+        The library default is 'fused', where the JAX package's is
+        'compact': every lane gives the same rasters, so the default picks
+        only a program and its time, and the port's is the lane that the
+        CLI, the site path, the QA tools and the mesh steps serve.
+        cama_tpu_torch.bench, where the program is what is measured, names
+        its lane on every pipeline it builds ('compact', as bench.py does).
         device: 'cuda' runs the CUDA kernels and raises
         when no card is present; 'cpu' runs their plain PyTorch
         versions."""

@@ -3,9 +3,11 @@
     python -m cama_tpu_torch.tools.mesh_child PLAN.json RANK
 
 PLAN.json holds {"world": N, "port": P, "backend": "gloo", "nccl" or
-null, "device": "cpu", "cuda" or "cuda:I", "out": DIR, "jobs": [...]}.
-Every rank joins the world through multihost.initialize, then runs the same
-jobs in the same order, so their collectives pair up.  Each job builds its
+null, "device": "cpu", "cuda" or "cuda:I" (or a list of these, one per
+rank), "out": DIR, "jobs": [...]}.  Every rank joins the world through
+multihost.initialize (a world of one rank starts a process group of its own
+when the plan names a backend), then runs the same jobs in the same order,
+so their collectives pair up.  Each job builds its
 mesh and step, runs it on the global host arrays of an .npz file, and
 rank 0 writes what the job gathered to DIR/<name>.npz.  Every rank prints
 one JSON line last: per job, its times (CUDA events on a card, the host
@@ -31,6 +33,11 @@ Job kinds (the fields each reads beside "kind" and "name"):
                (size: run each pipeline's counting pass first, which sizes
                the crop compaction; output_size: compile the scenes at
                that (h, w) instead of the default)
+  cross_host_sum  hosts [h, l], sums_of (an earlier job's name) or sums:
+               that job's metric sums (or the sums given), split evenly
+               over h hosts with a scene counter, through
+               cross_host_metric_sum on virtual_hosts_mesh(h, l); returns
+               the per-host partials and the summed totals
   multihost    the cross-host pieces: assign_scenes, run_local_scenes with
                a failing scene, reduce_metric_partials,
                cross_host_metric_sum and allgather_host_results on
@@ -77,10 +84,12 @@ class _Run:
 
         self.rank = rank
         self.out = plan["out"]
-        self.device_arg = plan.get("device", "cuda")
+        device = plan.get("device", "cuda")
+        self.device_arg = device[rank] if isinstance(device, list) else device
         self.dev = rank_device(self.device_arg)
         self._meshes = {}
         self._inputs = {}
+        self.results = {}  # job name -> what the job returned, in order
 
     def mesh(self, axes, shape):
         from cama_tpu_torch.parallel.sharding import Mesh
@@ -251,6 +260,23 @@ def job_evaluate(run, job):
             "k1": [k[-1] for k in ev._sharded_steps]}
 
 
+def job_cross_host_sum(run, job):
+    """cross_host_metric_sum over a ('hosts', 'local') mesh of the sizes
+    given, on partials made as the JAX package's dryrun makes them: each
+    host holds an even share of an earlier job's metric sums, plus one
+    scene."""
+    from cama_tpu_torch.parallel import multihost
+
+    n_hosts, per_host = job["hosts"]
+    sums = job.get("sums") or run.results[job["sums_of"]]["sums"]
+    mesh = multihost.virtual_hosts_mesh(n_hosts, per_host, run.device_arg)
+    partials = [{**{k: v / n_hosts for k, v in sums.items()},
+                 "n_scenes": 1.0} for _ in range(n_hosts)]
+    summed, ms = _timed(lambda: multihost.cross_host_metric_sum(
+        mesh, list(partials[0]))(partials), run.dev)
+    return {"ms": [ms], "partials": partials, "summed": summed}
+
+
 def job_multihost(run, job):
     """The cross-host tier across this world's ranks, one rank per host
     (the port's form of the JAX package's two-process check)."""
@@ -355,7 +381,7 @@ def job_multihost(run, job):
 JOBS = {"overlay": job_overlay, "overflow": job_overflow,
         "multi_scene": job_multi_scene, "map_metrics": job_map_metrics,
         "scene_metrics": job_scene_metrics, "evaluate": job_evaluate,
-        "multihost": job_multihost}
+        "cross_host_sum": job_cross_host_sum, "multihost": job_multihost}
 
 
 def main(argv=None):
@@ -364,20 +390,30 @@ def main(argv=None):
     with open(plan_path) as f:
         plan = json.load(f)
 
+    import torch
     import torch.distributed as dist
 
     from cama_tpu_torch.parallel import multihost
 
-    started = multihost.initialize(f"localhost:{plan['port']}",
-                                   plan["world"], rank,
+    address = f"localhost:{plan['port']}"
+    started = multihost.initialize(address, plan["world"], rank,
                                    backend=plan.get("backend"))
     run = _Run(plan, rank)
+    if plan["world"] == 1 and plan.get("backend"):
+        # multihost.initialize starts no group for one process: this one
+        # runs the steps' single-rank path under the backend named
+        if run.dev.type == "cuda":
+            torch.cuda.set_device(run.dev)
+        dist.init_process_group(plan["backend"],
+                                init_method=f"tcp://{address}",
+                                world_size=1, rank=0)
+        started = True
     payload = {"rank": rank, "world": plan["world"],
                "backend": dist.get_backend() if started else None,
-               "device": str(run.dev), "jobs": {}}
+               "device": str(run.dev), "jobs": run.results}
     t0 = time.perf_counter()
     for job in plan["jobs"]:
-        payload["jobs"][job["name"]] = JOBS[job["kind"]](run, job)
+        run.results[job["name"]] = JOBS[job["kind"]](run, job)
     payload["seconds"] = time.perf_counter() - t0
     payload["modules"] = sorted(
         m for m in sys.modules if sys.modules[m] is not None

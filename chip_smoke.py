@@ -217,7 +217,22 @@ next to this script):
      validate_convert_real (no nuScenes copy here: exit 2, "waiting"),
      demo, demo_adaptive ('fused' served, its kernel launched),
      demo_device_compositing and demo_multihost (two gloo ranks on the
-     card): each its exit code and its output's telling line.
+     card): each its exit code and its output's telling line.  The bench
+     line's keys time bench.py's programs: the headline the single-stage
+     'compact' program, device_ms_per_frame the two-stage one (equal to
+     device_ms_per_frame_two_stage), both 'compact' programs launching no
+     kernel; device_resident_fps_fused, device_ms_per_frame_compact and
+     hbm_gbps_lower_bound must be nonzero.
+
+  11. the driver-contract entry points (cama_tpu_torch.graft_entry, the
+     port of __graft_entry__.py), lines tagged [graft]: entry() on the card,
+     its rasters [8, 6, 96, 128] byte-equal to entry(device='cpu')'s plain
+     program, fused_compact_project launched once (one launch covers the
+     chunk's eight frames) and no plain version run; dryrun_multichip(1), a
+     rank under NCCL and the multihost job on two gloo ranks sharing the
+     card, then dryrun_multichip(4), four gloo ranks sharing the card: the
+     ten checks of the JAX dryrun, each printing its `dryrun_multichip ok:`
+     line, with the seconds each took.
 
 Pipelines of phases 2-4 that are expected to run the counting pass first
 delete the clip's counts sidecar (forget_counts).
@@ -2490,7 +2505,9 @@ BENCH_KEYS = ("overlay_stream_fps", "frame_stream_fps",
               "multi_scene_stream_fps_sequential", "map_eval_fps",
               "wide_scene_fps", "wide_scene_eval_fps", "device_ms_per_frame",
               "device_ms_per_frame_fused", "device_ms_per_frame_pallas",
-              "device_ms_per_frame_two_stage", "cli_time_to_first_video_s")
+              "device_ms_per_frame_two_stage", "device_ms_per_frame_compact",
+              "device_resident_fps_fused", "hbm_gbps_lower_bound",
+              "cli_time_to_first_video_s")
 
 
 def bench_phase(card):
@@ -2533,6 +2550,16 @@ def bench_phase(card):
     if not (launches.get("fused", {}).get("fused_compact_project")
             and launches.get("pallas", {}).get("project_frame_pallas")):
         bad.append(f"device lane launches {launches}")
+    # bench.py's device_ms_per_frame is the two-stage program; the headline
+    # the single-stage 'compact' one, the fused one under its own key
+    if d.get("device_ms_per_frame") != d.get("device_ms_per_frame_two_stage"):
+        bad.append(f"device_ms_per_frame {d.get('device_ms_per_frame')} is "
+                   f"not two-stage's {d.get('device_ms_per_frame_two_stage')}")
+    if any(launches.get(lane, {}).get(k) for lane in ("compact", "two_stage")
+           for k in ("fused_compact_project", "project_frame_pallas")):
+        bad.append(f"the 'compact' programs launched a kernel: {launches}")
+    if d.get("raster_kernel") != "compact":
+        bad.append(f"raster_kernel {d.get('raster_kernel')}")
     if bad:
         raise RuntimeError(f"the bench line is out of contract: {bad}")
 
@@ -2566,6 +2593,52 @@ def bench_phase(card):
         raise RuntimeError(f"python -m cama_tpu_torch: rc {proc.returncode}, "
                            f"videos {written}; stdout {proc.stdout[-1500:]!r}"
                            f"; stderr {proc.stderr[-1500:]!r}")
+
+
+def graft_phase(dev, card):
+    """Phase 11: the driver-contract entry points (module docstring)."""
+    import torch
+
+    from cama_tpu_torch import graft_entry
+    from cama_tpu_torch.ops import fused_compact as fc
+
+    t_phase = time.perf_counter()
+    fn, args = graft_entry.entry()
+    if {a.device.type for a in args} != {"cuda"}:
+        raise RuntimeError("entry() did not put its arguments on the card")
+    reset_all_launches()
+    with counting_plain_versions() as plain:
+        rasters = fn(*args)
+        sync(dev)
+    launches = all_launches()
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    want = fn_cpu(*args_cpu).numpy()
+    got = rasters.cpu().numpy()
+    apart = int((got != want).sum()) if got.shape == want.shape else -1
+    say("graft", f"entry(): rasters {tuple(got.shape)} {got.dtype} on "
+                 f"{rasters.device}, {int((got > 0).sum())} painted pixels; "
+                 f"bytes apart from entry(device='cpu')'s plain program "
+                 f"{apart} of {want.size} (must be 0); launches {launches} "
+                 f"(fused_compact_project once for the chunk of "
+                 f"{got.shape[0]} frames); plain versions run {plain or 0} "
+                 f"| {card}")
+    if (apart or got.shape != (8, 6, 96, 128) or plain
+            or launches["fused_compact_project"] != 1):
+        raise RuntimeError("entry() on the card out of contract")
+    for n, clusters in ((1, [(1, "nccl"), (2, "gloo")]), (4, [(4, "gloo")])):
+        t0 = time.perf_counter()
+        result = graft_entry.dryrun_multichip(n)
+        secs = time.perf_counter() - t0
+        say("graft", f"dryrun_multichip({n}): {len(result['checks'])} checks "
+                     f"in {secs:.1f} s; clusters (ranks, backend) "
+                     f"{result['clusters']} on {torch.cuda.device_count()} "
+                     f"card(s) | {card}")
+        if len(result["checks"]) != 10 or (
+                torch.cuda.device_count() == 1
+                and result["clusters"] != clusters):
+            raise RuntimeError(f"dryrun_multichip({n}) out of contract: "
+                               f"{result}")
+    say("graft", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def _run_main(mod, argv):
@@ -3310,6 +3383,9 @@ def main():
     # ---- phase 10: the benchmark and the CLI as a user runs them ----
     bench_phase(card)
     scripts_phase(card)
+
+    # ---- phase 11: the driver-contract entry points ----
+    graft_phase(dev, card)
 
     loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "cama_tpu"))

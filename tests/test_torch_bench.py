@@ -116,6 +116,8 @@ def test_main_runs_every_stage_on_cpu(roots, monkeypatch, capsys):
                 "wide_scene_fps", "wide_scene_eval_fps",
                 "device_ms_per_frame", "device_ms_per_frame_fused",
                 "device_ms_per_frame_pallas", "device_ms_per_frame_two_stage",
+                "device_ms_per_frame_compact", "device_resident_fps_fused",
+                "hbm_gbps_lower_bound", "hbm_util_lower_bound",
                 "cli_time_to_first_video_s", "cli_wall_s"):
         assert d[key] > 0, key
     assert d["frames"] == 2 and d["wide_scene_points"] > 200_000
@@ -124,13 +126,15 @@ def test_main_runs_every_stage_on_cpu(roots, monkeypatch, capsys):
     assert d["device_lane_launches"] == {
         lane: {"fused_compact_project": 0, "count_union": 0,
                "project_frame_pallas": 0}
-        for lane in ("fused", "pallas", "two_stage")}
+        for lane in ("two_stage", "compact", "fused", "pallas")}
     assert (d["multi_scene_stream_fps_batched"],
             d["multi_scene_stream_fps_sequential"]) == (12.5, 7.25)
     assert d["validate_ok"] is True and d["validate_min_agreement"] == 0.9999884
     assert d["failures"] == [] and d["skipped"] == []
     assert d["backend"] == "cpu" and d["card"] is None
     assert d["reference_cpu_fps"] is None and d["reference_repeats"] == 0
+    assert d["device_ms_per_frame"] == d["device_ms_per_frame_two_stage"]
+    assert d["raster_kernel"] == "compact" and d["bench_def"] == 2
 
 
 @pytest.mark.skipif(CUDA, reason="the outage line needs a machine without a "

@@ -40,6 +40,11 @@ _CHILD = textwrap.dedent("""
     sharded, _ = step(st.points, st.valid, st.cls, st.A, st.B,
                       st.frame_valid, pipe._crop_lo, pipe._crop_hi)
     assert sharded.any()
+    # the driver-contract entry on the plain versions (its dryrun spawns
+    # clusters of its own and is not run here)
+    from cama_tpu_torch import graft_entry
+    fn, args = graft_entry.entry(device="cpu")
+    assert fn(*args).shape == (8, 6, 96, 128)
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -582,7 +587,8 @@ def test_port_sources_never_load_cama_tpu():
             "cama_tpu_torch/examples/demo.py",
             "cama_tpu_torch/examples/demo_adaptive.py",
             "cama_tpu_torch/examples/demo_device_compositing.py",
-            "cama_tpu_torch/examples/demo_multihost.py"} <= scanned
+            "cama_tpu_torch/examples/demo_multihost.py",
+            "cama_tpu_torch/graft_entry.py"} <= scanned
     assert imports.match("from cama_tpu.ops import lift")
     assert imports.match("import cama_tpu")
     assert not imports.match("from cama_tpu_torch.ops import lift")
@@ -617,5 +623,5 @@ def test_port_sources_never_import_jax():
             "tools/gen_golden.py", "tools/validate_convert_real.py",
             "examples/demo.py", "examples/demo_adaptive.py",
             "examples/demo_device_compositing.py",
-            "examples/demo_multihost.py"} <= scanned, \
+            "examples/demo_multihost.py", "graft_entry.py"} <= scanned, \
         sorted(scanned)
