@@ -1,0 +1,59 @@
+"""Shared set-up of the benchmark's CPU tests: a copy of BENCHMARK.json
+whose configurations are cut to a few frames (and the wide span to 140 m),
+so that a whole run fits a test on the CPU, with the cells of EXTRA_CELLS
+added.
+
+    python -m pytest camabench/tests -q
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+TINY = {"frames_per_scene": 4}
+# traffic mixes no cell of BENCHMARK.json runs yet, kept for a later cell
+# (PERF.md, Open questions): tested as tiny cells of their own
+EXTRA_CELLS = [{"name": "release_video", "config": "nusc_scene",
+                "traffic": "four_scene_videos", "chips": 1, "why": "test",
+                "like": "scene_video"}]
+
+
+def write_tiny_root(root):
+    """BENCHMARK.json and cut-down configuration files under root."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for c in bench["configs"]:
+        with open(os.path.join(REPO, c["file"])) as f:
+            cfg = json.load(f)
+        cfg.update(TINY)
+        if cfg["name"] == "wide_span":
+            cfg["label_span_m"] = [-290.0, -150.0]
+        c["file"] = f"{cfg['name']}.json"
+        with open(os.path.join(root, c["file"]), "w") as f:
+            json.dump(cfg, f)
+    for extra in EXTRA_CELLS:
+        cell = {k: v for k, v in extra.items() if k != "like"}
+        bench["workloads"].append(cell)
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if extra["like"] in m.get("workloads", []):
+                m["workloads"].append(cell["name"])
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    return root
+
+
+@pytest.fixture(scope="session")
+def tiny_root(tmp_path_factory):
+    return str(write_tiny_root(tmp_path_factory.mktemp("tiny")))
+
+
+@pytest.fixture(scope="session")
+def cache_root(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("cache"))
