@@ -1006,12 +1006,13 @@ class MapEvaluator:
             _host_project_compact_chunk,
         )
 
-        fm, A, B, fv, F = pipeline._chunked_AB(source)
-        k1 = None
-        if self.backend == "device":
-            st = pipeline.scene_tensors(source)
-            if self.compact == "auto":
-                k1 = pipeline.crop_compact_k(source)
+        with self.timers.phase("eval_layout"):
+            fm, A, B, fv, F = pipeline._chunked_AB(source)
+            k1 = None
+            if self.backend == "device":
+                st = pipeline.scene_tensors(source)
+                if self.compact == "auto":
+                    k1 = pipeline.crop_compact_k(source)
         h, w = pipeline.scene.output_size
         lo, hi = pipeline._crop_lo, pipeline._crop_hi
         pending = None if frames is None else set(frames)
@@ -1152,14 +1153,17 @@ class MapEvaluator:
         if (self.backend != "device" or frames is not None
                 or self.resident == "off"):
             return None
-        cache = pipeline.gt_mask_cache()
+        with self.timers.phase("eval_gt_refresh"):
+            cache = pipeline.gt_mask_cache()
         if cache is None:
             return None  # no content key to detect regenerated masks by
         gt_key = cache.key
-        st = pipeline.scene_tensors(source)
+        with self.timers.phase("eval_layout"):
+            st = pipeline.scene_tensors(source)
+            k1 = (pipeline.crop_compact_k(source) if self.compact == "auto"
+                  else None)
+            layout = list(self._chunk_layout(pipeline, source))
         device = pipeline.device
-        k1 = (pipeline.crop_compact_k(source) if self.compact == "auto"
-              else None)
         h, w = pipeline.scene.output_size
         lo, hi = pipeline._crop_lo, pipeline._crop_hi
         store = self._resident_fields.get(pipeline)
@@ -1172,7 +1176,7 @@ class MapEvaluator:
         sink = {"mi": [], "gi": []}
         visible = set()
         n_evaluated = 0
-        for s, idxs in self._chunk_layout(pipeline, source):
+        for s, idxs in layout:
             key = (source, s)
             entry = store["chunks"].get(key)
             if entry is not None and entry["gt_key"] != gt_key:
@@ -1247,7 +1251,8 @@ class MapEvaluator:
         a time) so memory stays bounded for long scenes; chunk partials are
         plain sums, fetched once after the last chunk is queued, so the
         host's GT loading overlaps the device's work."""
-        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        with self.timers.phase("eval_gt_refresh"):
+            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
         r = self._eval_scene_resident(pipeline, source, frames,
                                       instances=False, assignment="nearest")
         if r is not None:
@@ -1374,7 +1379,8 @@ class MapEvaluator:
         (see instance_association).  Votes are fetched in batched transfers
         every MAX_PENDING_CHUNKS chunks."""
         self._check_assignment(assignment)
-        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        with self.timers.phase("eval_gt_refresh"):
+            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
         device = pipeline.device
         pending = []
         sink = {"mi": [], "gi": []}
@@ -1416,7 +1422,8 @@ class MapEvaluator:
         trailing copy.  The result dict is the union of the two
         single-metric methods' outputs."""
         self._check_assignment(assignment)
-        pipeline.refresh_gt_cache()  # pick up regenerated GT masks
+        with self.timers.phase("eval_gt_refresh"):
+            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
         r = self._eval_scene_resident(pipeline, source, frames,
                                       instances=True, assignment=assignment)
         if r is not None:
@@ -1506,8 +1513,9 @@ class MapEvaluator:
         pipes = [msp.pipelines[i] for i in members]
         device = msp.device
         on_card = device.type == "cuda"
-        for p in pipes:
-            p.refresh_gt_cache()  # pick up regenerated GT masks
+        with self.timers.phase("eval_gt_refresh"):
+            for p in pipes:
+                p.refresh_gt_cache()  # pick up regenerated GT masks
         # the members' points, padded to a common P with invalid points
         tens = [p.scene_tensors(source) for p in pipes]
         P = max(int(t.points.shape[0]) for t in tens)
@@ -1684,8 +1692,9 @@ class MapEvaluator:
         fms, Fs, A, B, fv = (v if isinstance(v, list) else v.cpu().numpy()
                              for v in msp._stacked(source))
         pipes = [msp.pipelines[i] for i in members]
-        for p in pipes:
-            p.refresh_gt_cache()  # pick up regenerated GT masks
+        with self.timers.phase("eval_gt_refresh"):
+            for p in pipes:
+                p.refresh_gt_cache()  # pick up regenerated GT masks
         h, w = pipes[0].scene.output_size
         lo, hi = pipes[0]._crop_lo, pipes[0]._crop_hi
         S = len(pipes)

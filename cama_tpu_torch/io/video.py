@@ -7,11 +7,13 @@ The environment may lack ffmpeg entirely, so every backend is feature-gated.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -39,7 +41,7 @@ def concat_camera_grid(image_dict, out=None):
 
 class VideoSink:
     def __init__(self, output_path, output_shape=(2880, 1080), fps=10,
-                 preset=None, async_write=None):
+                 preset=None, async_write=None, timers=None):
         """preset: optional libx264 preset (e.g. 'ultrafast', 'veryfast').
         None keeps the encoder's default — byte-parity with the reference's
         settings (cama/tools.py:13-17). x264 at 2880x1080 dominates video
@@ -53,7 +55,23 @@ class VideoSink:
         64 KB pipe buffer covers <1 % of a mosaic frame).  Default: on when
         the host has more than one core (overlap is impossible on one core
         and the extra frame copy is pure cost there).  Frame order and
-        output bytes are identical either way (tests/test_video_sink.py)."""
+        output bytes are identical either way (tests/test_video_sink.py).
+
+        timers: a profiling.PhaseTimers that times the sink's phases
+        (none when None): 'sink_open' (the backend's open, and the counter
+        'sink_backend.<ffmpeg|cv2|raw>'), 'sink_wait' (the producer blocked
+        on a free buffer: the encoder's back-pressure), 'sink_copy' (the
+        producer's copy of a frame or the mosaic concat), 'sink_close' (the
+        drain of the last frames and the backend's release) and
+        'sink_encode' (the backend's own busy time, n = frames encoded).
+        On the async path the feeder thread only accumulates 'sink_encode',
+        and close() hands the total to `timers` on the caller's thread, so
+        no timer is written from two threads; on the synchronous path the
+        write is timed as 'sink_encode' alone."""
+        self._timers = timers
+        self._closed = False
+        self._encode_s = 0.0  # the feeder's busy time and frames, handed
+        self._encode_n = 0    # to timers by close()
         self.output_path = str(output_path)
         self.output_shape = tuple(output_shape)  # (w, h)
         self.fps = fps
@@ -62,7 +80,10 @@ class VideoSink:
         self._writer = None
         self._frames_dir = None
         self._write_count = 0  # raw-backend file numbering (feeder-thread safe)
-        self.backend = self._open()
+        with self._phase("sink_open"):
+            self.backend = self._open()
+        if timers is not None:
+            timers.add(f"sink_backend.{self.backend}", 0.0)
         if async_write is None:
             async_write = (os.cpu_count() or 1) > 1
         self._queue = None
@@ -87,12 +108,20 @@ class VideoSink:
                 return
             try:
                 if not self._failed:
+                    t0 = time.perf_counter()
                     self._write_frame(buf)
+                    self._encode_s += time.perf_counter() - t0
+                    self._encode_n += 1
             except Exception as e:  # surfaced on the caller's thread
                 self._failed = True
                 self._feeder_error = e
             finally:
                 self._free.put(buf)
+
+    def _phase(self, name):
+        if self._timers is None:
+            return contextlib.nullcontext()
+        return self._timers.phase(name)
 
     def _open(self):
         w, h = self.output_shape
@@ -141,14 +170,17 @@ class VideoSink:
             if self._feeder_error is not None:
                 err, self._feeder_error = self._feeder_error, None
                 raise err
-            buf = self._free.get()
-            if buf is None:
-                buf = np.empty_like(img)
-            # copy BEFORE returning: callers reuse their mosaic buffers
-            np.copyto(buf, img)
+            with self._phase("sink_wait"):
+                buf = self._free.get()
+            with self._phase("sink_copy"):
+                if buf is None:
+                    buf = np.empty_like(img)
+                # copy BEFORE returning: callers reuse their mosaic buffers
+                np.copyto(buf, img)
             self._queue.put(buf)
         else:
-            self._write_frame(img)
+            with self._phase("sink_encode"):
+                self._write_frame(img)
 
     def _write_frame(self, img):
         if self._proc is not None:
@@ -165,11 +197,24 @@ class VideoSink:
     def add_frame_from_dict(self, image_dict):
         # reuse one mosaic buffer across frames — safe because add_frame
         # either writes before returning or (async feeder) copies eagerly
-        self._mosaic = concat_camera_grid(image_dict,
-                                          out=getattr(self, "_mosaic", None))
+        with self._phase("sink_copy"):
+            self._mosaic = concat_camera_grid(
+                image_dict, out=getattr(self, "_mosaic", None))
         self.add_frame(self._mosaic)
 
     def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            with self._phase("sink_close"):
+                self._close()
+        finally:
+            if self._encode_n and self._timers is not None:
+                self._timers.add("sink_encode", self._encode_s,
+                                 n=self._encode_n)
+
+    def _close(self):
         if self._feeder is not None:
             self._queue.put(None)
             self._feeder.join()

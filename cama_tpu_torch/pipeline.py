@@ -433,6 +433,7 @@ class ClipPipeline:
         self.raster_kernel = "fused" if raster_kernel == "auto" else raster_kernel
         self.device = resolve_device(device)
         self.chunk = int(chunk)
+        self.timers = PhaseTimers()
         if scene is not None:
             self.scene = scene
         else:
@@ -445,10 +446,12 @@ class ClipPipeline:
                 else:
                     cache = os.path.join(str(clip_path), ".cama_tpu",
                                          "scene_cache.npz")
-            self.scene = compile_scene(clip_path, self.configs, sources=sources,
-                                       cache=cache)
+            with self.timers.phase("scene_compile"):
+                self.scene = compile_scene(clip_path, self.configs,
+                                           sources=sources, cache=cache)
+            self.timers.add("scene_cache_hit" if self.scene.from_cache
+                            else "scene_cache_miss", 0.0)
         self.remaps = RemapCache()
-        self.timers = PhaseTimers()
         self._fcache = False  # False = not yet resolved (None = disabled)
         self._gtcache = False  # the GT-mask store, resolved the same way
         self._fcache_lock = threading.Lock()
@@ -524,16 +527,27 @@ class ClipPipeline:
 
         With configs['scene_cache'] (default on) the three maxima persist in
         .cama_tpu/overlay_counts.json under _counts_sidecar_key, and a later
-        pipeline or process on the same clip and lane skips the pass."""
+        pipeline or process on the same clip and lane skips the pass.
+        self.timers counts 'counts_sidecar_hit' or 'counts_sidecar_miss',
+        and times the pass with the sidecar's store as 'count_pass'."""
         if source in self._mode:
             return self._mode[source]
+        entry, maxima = self._counted(source)
+        if maxima is None:
+            with self.timers.phase("count_pass"):
+                maxima = self._count_maxima(source)
+                if entry is not None:
+                    self._counts_sidecar_store(*entry, *maxima)
+        return self._finish_overlay_mode(source, *maxima)
+
+    def _counted(self, source):
+        """(sidecar entry or None, the maxima it holds or None), counted as
+        'counts_sidecar_hit' or 'counts_sidecar_miss'."""
         entry = self._counts_sidecar(source)
         maxima = entry and self._counts_sidecar_load(*entry)
-        if maxima is None:
-            maxima = self._count_maxima(source)
-            if entry is not None:
-                self._counts_sidecar_store(*entry, *maxima)
-        return self._finish_overlay_mode(source, *maxima)
+        self.timers.add("counts_sidecar_miss" if maxima is None
+                        else "counts_sidecar_hit", 0.0)
+        return entry, maxima
 
     def _count_maxima(self, source):
         """The counting pass (overlay_mode): (mc_crop, mc, mc_union)."""
@@ -642,8 +656,7 @@ class ClipPipeline:
         never runs the counting pass itself: compaction stays off until an
         overlay pass has sized the clip."""
         if source not in self._mode:
-            entry = self._counts_sidecar(source)
-            maxima = entry and self._counts_sidecar_load(*entry)
+            maxima = self._counted(source)[1]
             if maxima is None:
                 return None
             self._finish_overlay_mode(source, *maxima)
@@ -1353,7 +1366,7 @@ class ClipPipeline:
             for src, path in source_paths.items():
                 mode, k = self.serving_mode(src)
                 sinks[src] = VideoSink(path, output_shape=(w * 3, h * 2), fps=fps,
-                                       preset=preset)
+                                       preset=preset, timers=self.timers)
                 streams[src] = (mode, self.iter_overlay_rasters(
                     src, unpack=not fused) if mode == "raster"
                     else self.iter_sparse_points(src, k=k))
@@ -1610,7 +1623,8 @@ class MultiScenePipeline:
             for si, paths in enumerate(per_scene_paths):
                 for src, path in paths.items():
                     sinks[(si, src)] = VideoSink(
-                        path, output_shape=(w * 3, h * 2), fps=fps, preset=preset)
+                        path, output_shape=(w * 3, h * 2), fps=fps, preset=preset,
+                        timers=self.timers)
             bufs = {}  # (si, src) -> persistent composite or mosaic buffers
             # the native mosaic path for every scene, or the dict path for
             # every scene: packed 2-bit rasters stream through to the paint

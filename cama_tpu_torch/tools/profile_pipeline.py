@@ -13,6 +13,20 @@ says so and exits 2.  torch.profiler can lose the card's events in a
 process more than ~30 s old (profiling.device_trace): a trace that lost
 launches is reported on stderr, and should be taken again from a fresh
 process.
+
+Reading the trace (--trace-dir; open the trace_<pid>_<ns>.json in Perfetto
+or chrome://tracing): on a card it holds the card's kernels, memsets and
+copies with the CUDA calls that launched them, and the program's own
+spans, every PhaseTimers phase of the warm pass (device_dispatch,
+sparse_fetch, host_composite, ...), on the card's clock: they sit on the host thread's track above the kernels,
+category "cama_span", with args {id, parent}, the parent being the span
+open around it on the same thread (0 for none).  So a gap between kernels
+reads as the span open over it.  CPU operators are not recorded: they slow
+the host and inflate its phases; profiling.device_trace(cpu_ops=True)
+records them.  On the CPU the trace holds the CPU operators and the
+spans.  The tool prints the spans written, those dropped past the span
+log's capacity, and the clock drift at the trace's close (the closing
+synchronisation by the host's clock against the trace's, in us).
 """
 from __future__ import annotations
 
@@ -76,11 +90,15 @@ def main(argv=None):
     if args.trace_dir:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            with device_trace(args.trace_dir, device=args.device):
+            with device_trace(args.trace_dir, device=args.device) as prof:
                 t0 = time.perf_counter()
                 n = run()
         for w in caught:
             print(f"profile_pipeline: warning: {w.message}", file=sys.stderr)
+        spans = prof.cama_spans
+        print(f"profile_pipeline: trace spans {spans['spans']}, dropped "
+              f"{spans['dropped']}, clock drift at close "
+              f"{spans['clock_drift_us']:.1f} us", file=sys.stderr)
     else:
         t0 = time.perf_counter()
         n = run()

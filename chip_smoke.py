@@ -2058,12 +2058,14 @@ def qa_checks(dev, card, scene_ref, root, clip, twin):
     # ---- the device trace around one serving chunk ----
     # in a fresh process, as a user's trace would start, it must name the
     # fused kernel; in this one, minutes old, torch.profiler may drop the
-    # card's events (PERF.md): then device_trace must say so
+    # card's events (PERF.md): then device_trace must say so.  cpu_ops:
+    # device_events_of reads prof.events(), as the trace recorded it with
+    # the CPU operators
     reset_all_launches()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with device_trace(os.path.join(root, "trace_here"),
-                          device=dev) as prof:
+                          device=dev, cpu_ops=True) as prof:
             it = pipe.iter_sparse_points("cama", max_in_flight=1)
             next(it)
             it.close()

@@ -115,7 +115,8 @@ def test_batched_write_videos_equal_solo(clips, monkeypatch):
     frames = {}
 
     class Capture:
-        def __init__(self, path, output_shape, fps=10, preset=None):
+        def __init__(self, path, output_shape, fps=10, preset=None,
+                 timers=None):
             self.path = path
             frames[path] = []
 

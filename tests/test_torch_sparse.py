@@ -404,7 +404,8 @@ class _CaptureSink:
     """VideoSink stand-in that keeps a copy of every frame."""
     frames = {}
 
-    def __init__(self, path, output_shape, fps=10, preset=None):
+    def __init__(self, path, output_shape, fps=10, preset=None,
+                 timers=None):
         self.path = path
         _CaptureSink.frames[path] = []
 
