@@ -32,7 +32,10 @@ device='cpu'.
 Instance-id images are uint16, on the host and on the device.  PyTorch
 computes little on uint16, so the functions here reinterpret such a tensor
 as int16 (the same bits) where they only move ids around, and widen it to
-int32 where they compare them.
+int32 where they compare them.  An evaluator on the card builds each
+chunk's id stack in page-locked host memory and sends it as it stands
+(_id_stack, device_ids); the JAX package sends sparse stacks as COO pairs
+instead, and the ids on the device are the same.
 """
 from __future__ import annotations
 
@@ -322,40 +325,45 @@ def _project_scenes(points, valid, A, B, fv, width, height, lo, hi):
     return tuple(torch.stack(t) for t in zip(*outs))
 
 
-def _scatter_ids(idx, vals, shape):
-    """Rebuild a dense id stack from COO (flat index, value) pairs; padding
-    entries carry idx == prod(shape) and are dropped."""
-    size = int(np.prod(shape, dtype=np.int64))
-    v = _bits16(vals)
-    buf = torch.zeros((size + 1,), dtype=v.dtype, device=v.device)
-    buf[idx.to(torch.int64)] = v
-    return buf[:-1].view(vals.dtype).reshape(tuple(shape))
+def _id_stack(shape, pinned):
+    """An uninitialised uint16 stack for a chunk's GT instance ids: the NumPy
+    face of a page-locked tensor when `pinned` (bound for the card), else a
+    plain array.  The caller writes or zeroes every row."""
+    if not pinned:
+        return np.empty(shape, np.uint16)
+    # A fresh block for every chunk, dropped once device_ids has queued its
+    # copy: the caching host allocator hands a pinned block out again only
+    # after the copies that read it have finished (it finds the block by
+    # its address, which the NumPy face starts at), so the host fills the
+    # next chunk's stack while this one is still in flight.
+    return torch.empty(shape, dtype=torch.uint16, pin_memory=True).numpy()
 
 
-def device_ids(ids_b, device="cuda"):
-    """Upload a chunk's GT instance-id stack with few bytes.
+def device_ids(ids_b, device="cuda", timers=None):
+    """A chunk's GT instance-id stack as the same uint16 stack on `device`.
 
-    Lane-geometry GT typically paints a few percent of pixels, so a sparse
-    COO upload (6 B/nonzero: int32 index + uint16 id, scattered on the
-    device) is taken whenever it moves fewer bytes than the dense uint16
-    stack; otherwise the stack goes up dense.  COO budgets round up to
-    powers of two (at least 1024), as in the JAX package."""
+    A stack in page-locked memory (_id_stack's) goes to the card as it
+    stands, with one non-blocking copy; any other array takes _upload's
+    pinned copy first.  On the card, `timers` (a PhaseTimers) counts each
+    stack as eval_gt_staged or eval_gt_pageable.  The JAX package sends a
+    sparse stack as COO pairs to spare its host link; here the host's scan
+    for the nonzero ids cost more than the dense copy it saved, so the port
+    always sends the stack dense.  The values on the device are the same."""
     ids_b = np.ascontiguousarray(ids_b)
     if ids_b.dtype != np.uint16:
         if ids_b.max(initial=0) >= 65536:  # not an assert: -O must not let
             # out-of-range ids wrap into other instances' votes silently
             raise ValueError("instance ids exceed uint16")
         ids_b = ids_b.astype(np.uint16)
-    flat = np.flatnonzero(ids_b)
-    # compare what each path actually moves: decide on the padded size
-    budget = 1 << max(10, (len(flat) - 1).bit_length() if len(flat) else 0)
-    if 6 * budget < 2 * ids_b.size:
-        idx = np.full((budget,), ids_b.size, np.int32)
-        vals = np.zeros((budget,), np.uint16)
-        idx[: len(flat)] = flat
-        vals[: len(flat)] = ids_b.flat[flat]
-        return _scatter_ids(_upload(idx, device), _upload(vals, device),
-                            ids_b.shape)
+    device = torch.device(device)
+    if device.type == "cuda":
+        t = torch.from_numpy(ids_b)
+        staged = t.is_pinned()
+        if timers is not None:
+            timers.add("eval_gt_staged" if staged else "eval_gt_pageable",
+                       0.0)
+        if staged:
+            return t.to(device, non_blocking=True)
     return _upload(ids_b, device)
 
 
@@ -1078,15 +1086,22 @@ class MapEvaluator:
                 if image_idx is not None:
                     yield image_idx, vu_c[kk], keep_c[kk]
 
-    def _load_all_cameras(self, pipeline, image_idx):
-        """Instance-id images for every camera, or None if any is missing."""
+    def _camera_ids(self, pipeline, image_idx):
+        """Instance-id images for every camera (GT store views), or None if
+        any is missing."""
         ids = []
         for camera in pipeline.scene.camera_list:
             m = self.instance_loader(pipeline, camera, image_idx)
             if m is None:
                 return None
             ids.append(m)
-        return np.stack(ids)
+        return ids
+
+    def _load_all_cameras(self, pipeline, image_idx):
+        """Instance-id images for every camera stacked [C, H, W], or None if
+        any is missing."""
+        ids = self._camera_ids(pipeline, image_idx)
+        return None if ids is None else np.stack(ids)
 
     def _chunk_gt(self, pipeline, idxs):
         """GT instance-id stacks for one projection chunk.
@@ -1095,21 +1110,30 @@ class MapEvaluator:
         fv [K] float32 row validity; evaluated (row, frame index) list), or
         (None, None, []) when no row in the chunk has GT masks (the chunk's
         metric work is skipped entirely).  uint16 holds any id cv2 can read
-        from a lane_ins PNG (8- or 16-bit)."""
+        from a lane_ins PNG (8- or 16-bit).  Each camera's image is copied
+        once, straight into its row; for a device evaluator on the card the
+        stack lies in page-locked memory, which device_ids sends as it
+        stands."""
         ids_b = None
         fv = np.zeros((len(idxs),), np.float32)
         evaluated = []
         for kk, image_idx in enumerate(idxs):
             if image_idx is None:
                 continue
-            ids = self._load_all_cameras(pipeline, image_idx)
+            ids = self._camera_ids(pipeline, image_idx)
             if ids is None:
                 continue
             if ids_b is None:
-                ids_b = np.zeros((len(idxs),) + ids.shape, np.uint16)
-            ids_b[kk] = ids
+                ids_b = _id_stack(
+                    (len(idxs), len(ids)) + ids[0].shape,
+                    self.backend == "device"
+                    and pipeline.device.type == "cuda")
+            for c, m in enumerate(ids):
+                ids_b[kk, c] = m
             fv[kk] = 1.0
             evaluated.append((kk, image_idx))
+        if ids_b is not None:
+            ids_b[fv == 0] = 0  # the stack starts uninitialised
         return ids_b, fv, evaluated
 
     # resident-field device memory budget per evaluator: beyond it, later
@@ -1203,9 +1227,9 @@ class MapEvaluator:
                     p, votes, keep, sel, dist_fd, gtp, vote_fd = \
                         _eval_chunk_build(
                             st.points, st.valid, st.A[sl], st.B[sl], fvb,
-                            device_ids(ids_b, device), w, h, lo, hi, k1,
-                            self.max_radius, self.tolerance, self.distance,
-                            assignment, instances)
+                            device_ids(ids_b, device, self.timers), w, h,
+                            lo, hi, k1, self.max_radius, self.tolerance,
+                            self.distance, assignment, instances)
                 nbytes = sum(t.numel() * t.element_size()
                              for t in (dist_fd, gtp, vote_fd)
                              if t is not None)
@@ -1399,7 +1423,7 @@ class MapEvaluator:
             else:
                 with self.timers.phase("eval_dispatch"):
                     votes = instance_votes_chunk(
-                        device_ids(ids_b, device), vu_c, keep_c,
+                        device_ids(ids_b, device, self.timers), vu_c, keep_c,
                         self.tolerance, assignment)
                     self._push_votes(pipeline, source, pending, sink,
                                      (votes, keep_c, sel_c, evaluated))
@@ -1448,7 +1472,7 @@ class MapEvaluator:
             else:
                 with self.timers.phase("eval_dispatch"):
                     p, votes = _metrics_and_votes_chunk(
-                        device_ids(ids_b, device), vu_c, keep_c,
+                        device_ids(ids_b, device, self.timers), vu_c, keep_c,
                         _upload(fv, device), self.max_radius, self.tolerance,
                         self.distance, assignment,
                     )
@@ -1625,7 +1649,7 @@ class MapEvaluator:
                 votes = keep_p = cidx_f = None
                 if instances:
                     votes = instance_votes_chunk(
-                        device_ids(ids_b, device), vu_f, keep_f,
+                        device_ids(ids_b, device, self.timers), vu_f, keep_f,
                         self.tolerance, assignment)
                     # keep goes to the host bitpacked (an eighth of the
                     # bytes); skipped when only the partials are needed

@@ -3,6 +3,9 @@ originals (cama_tpu.eval.map_metrics) on identical arrays, made from a seed
 with NumPy, at a small size.  Everything integer-valued is held bit for bit;
 the one sum with irrational terms (the Euclidean sre_sum) to 1e-6 relative.
 """
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +15,9 @@ import jax.numpy as jnp
 
 from cama_tpu.eval import map_metrics as jm
 from cama_tpu_torch.eval import map_metrics as tm
+from cama_tpu_torch.io.fixture import add_instance_masks, make_fixture_clip
+from cama_tpu_torch.io.scene import compile_scene
+from cama_tpu_torch.pipeline import ClipPipeline
 
 K, C, H, W, P = 2, 3, 40, 64, 500
 TOL, RAD = 3, 6
@@ -191,30 +197,15 @@ def test_packbits_and_unpack_bits(width):
         N(back), np.asarray(jm._unpack_bits(jnp.asarray(N(packed)), width)))
 
 
-def test_scatter_ids():
-    shape = (2, 5, 7)
-    size = 70
-    idx = np.full((16,), size, np.int32)
-    vals = np.zeros((16,), np.uint16)
-    idx[:5] = [0, 69, 13, 35, 7]
-    vals[:5] = [1, 65535, 3, 40000, 9]
-    want = np.asarray(jm._scatter_ids(jnp.asarray(idx), jnp.asarray(vals), shape))
-    got = tm._scatter_ids(T(idx), T(vals), shape)
-    assert got.dtype == torch.uint16 and tuple(got.shape) == shape
-    np.testing.assert_array_equal(N(got), want)
-
-
 @pytest.mark.parametrize("case", ["coo", "dense", "int32", "empty"])
 def test_device_ids(case):
-    """The COO branch (sparse ids), the dense branch (the full image pushes
-    the padded COO budget past the dense bytes), a wider dtype, no ids."""
+    """Ids the JAX package sends as COO pairs (a sparse stack), a dense
+    stack, a wider dtype, no ids: the same uint16 stack on the device as
+    the JAX package's."""
     ids = {"coo": np.where(np.arange(K * C * H * W).reshape(IDS.shape) % 97
                            == 0, IDS.max(), 0).astype(np.uint16),
            "dense": IDS[1:, :1], "int32": IDS[0].astype(np.int32),
            "empty": np.zeros((1, C, H, W), np.uint16)}[case]
-    nnz = np.count_nonzero(ids)
-    budget = 1 << max(10, (nnz - 1).bit_length() if nnz else 0)
-    assert (6 * budget < 2 * ids.size) == (case != "dense")
     got = tm.device_ids(ids, device="cpu")
     assert got.dtype == torch.uint16
     np.testing.assert_array_equal(N(got), np.asarray(jm.device_ids(ids)))
@@ -224,6 +215,145 @@ def test_device_ids(case):
 def test_device_ids_rejects_wide_ids():
     with pytest.raises(ValueError, match="uint16"):
         tm.device_ids(np.full((1, 1, 4, 4), 70000, np.int32), device="cpu")
+
+
+def _stub_gt(frames, cameras):
+    """A stub pipeline on `device` and instance_loader for it: frame f,
+    camera c reads a read-only [H, W] image (as the GT store's views are),
+    uint8 for camera 0 of frame 0 (a first decode of an 8-bit PNG), None
+    where frames[f] lacks the camera."""
+    rng = np.random.default_rng(11)
+    images = {}
+    for f, have in frames.items():
+        for c, cam in enumerate(cameras):
+            if cam not in have:
+                continue
+            dtype = np.uint8 if (f, c) == (0, 0) else np.uint16
+            img = rng.integers(0, 4, (H, W)).astype(dtype)
+            img[img == 3] = 65535 if dtype == np.uint16 else 255
+            img.setflags(write=False)
+            images[f, cam] = img
+
+    def loader(pipeline, camera, image_idx):
+        return images.get((image_idx, camera))
+
+    def pipe(device):
+        return SimpleNamespace(device=torch.device(device),
+                               scene=SimpleNamespace(camera_list=cameras))
+    return images, loader, pipe
+
+
+@pytest.mark.parametrize("device,backend,pinned", [
+    ("cpu", "device", False), ("cuda", "device", True),
+    ("cuda", "host", False)])
+def test_chunk_gt_writes_every_row(monkeypatch, device, backend, pinned):
+    """_chunk_gt's stack, built in a buffer first filled with 0xFFFF, equals
+    the np.zeros build row by row: rows with GT, a frame missing a camera,
+    padding rows.  It asks for page-locked memory only for a device
+    evaluator on the card (a stub pipeline names the device: nothing is
+    allocated on it)."""
+    cams = ("front", "back")
+    images, loader, pipe = _stub_gt({0: cams, 2: cams[:1], 3: cams}, cams)
+    asked = []
+
+    def filled(shape, pin):
+        asked.append(pin)
+        return np.full(shape, 0xFFFF, np.uint16)
+
+    monkeypatch.setattr(tm, "_id_stack", filled)
+    ev = tm.MapEvaluator(backend=backend)
+    monkeypatch.setattr(ev, "instance_loader", loader)
+    idxs = [0, None, 2, 3, None]
+    ids_b, fv, evaluated = ev._chunk_gt(pipe(device), idxs)
+    want = np.zeros((len(idxs), len(cams), H, W), np.uint16)
+    for kk in (0, 3):
+        want[kk] = np.stack([images[idxs[kk], cam] for cam in cams])
+    assert asked == [pinned]
+    assert ids_b.dtype == np.uint16
+    np.testing.assert_array_equal(ids_b, want)
+    np.testing.assert_array_equal(fv, [1, 0, 0, 1, 0])
+    assert evaluated == [(0, 0), (3, 3)]
+    none, fv, evaluated = ev._chunk_gt(pipe(device), [None, 2])
+    assert none is None and not fv.any() and evaluated == []
+    assert asked == [pinned]  # no stack for a chunk without GT
+
+
+@pytest.fixture(scope="module")
+def gt_clip(tmp_path_factory):
+    """A 5-frame fixture clip (frames 1-4 valid) with its own reprojection
+    as ground truth, less one camera's mask of frame 1, compiled at
+    135 x 240.  In chunks of 3 the first chunk has a row without GT and the
+    second two padding rows."""
+    clip = make_fixture_clip(tmp_path_factory.mktemp("tids"), n_frames=5,
+                             with_images=False)
+    add_instance_masks(clip)
+    scene = compile_scene(clip, output_size=(135, 240))
+    cam = scene.camera_list[2]
+    os.remove(os.path.join(clip, f"lane_ins_{cam}",
+                           f"{scene.sync_ms[cam][1]}.png"))
+    return compile_scene(clip, output_size=(135, 240))
+
+
+@pytest.mark.parametrize("method", ["evaluate_scene", "evaluate_scene_all",
+                                    "evaluate_scene_instances"])
+def test_gt_transfer_counters_stay_off_the_cpu(gt_clip, method):
+    """On the CPU every chunk with GT loads once and nothing is staged or
+    pinned: neither transfer counter engages (on the card each such chunk
+    counts once, test_staged_ids_on_the_card)."""
+    ev = tm.MapEvaluator()
+    out = getattr(ev, method)(ClipPipeline(scene=gt_clip, chunk=3,
+                                           device="cpu"))
+    assert out["frames_evaluated"] == 3
+    assert ev.timers.count["eval_gt_load"] == 2
+    assert "eval_gt_staged" not in ev.timers.count
+    assert "eval_gt_pageable" not in ev.timers.count
+
+
+@pytest.mark.cuda
+def test_staged_ids_on_the_card(gt_clip, monkeypatch):
+    """On the card: a chunk's stack is page-locked; it and an unpinned copy
+    of it give the same ids there; a pinned block is not handed out again
+    while a copy that reads it waits in the stream; evaluate_scene counts
+    every chunk with GT as staged, and with the stacks built unpinned gives
+    the same dict, every chunk counted pageable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest tests/test_torch_*.py -m cuda)")
+    pipe = ClipPipeline(scene=gt_clip, chunk=3, device="cuda")
+    ev = tm.MapEvaluator()
+    _s, idxs = next(ev._chunk_layout(pipe, "cama"))
+    ids_b, _fv, evaluated = ev._chunk_gt(pipe, idxs)
+    assert evaluated and torch.from_numpy(ids_b).is_pinned()
+    staged = tm.device_ids(ids_b, "cuda", ev.timers)
+    pageable = tm.device_ids(ids_b.copy(), "cuda", ev.timers)
+    assert ev.timers.count["eval_gt_staged"] == 1
+    assert ev.timers.count["eval_gt_pageable"] == 1
+    want = torch.from_numpy(ids_b).view(torch.int16)
+    assert torch.equal(staged.cpu().view(torch.int16), want)
+    assert torch.equal(pageable.cpu().view(torch.int16), want)
+
+    torch.cuda._sleep(100_000_000)  # the copy below waits ~50 ms for this
+    stack = tm._id_stack(ids_b.shape, True)
+    stack[...] = ids_b
+    sent = tm.device_ids(stack, "cuda")
+    del stack
+    again = tm._id_stack(ids_b.shape, True)
+    again[...] = 0xFFFF
+    torch.cuda.synchronize()
+    assert torch.equal(sent.cpu().view(torch.int16), want)
+
+    ev = tm.MapEvaluator()
+    got = ev.evaluate_scene(pipe)
+    assert got["frames_evaluated"] == 3
+    assert ev.timers.count["eval_gt_staged"] == 2
+    assert ev.timers.count["eval_gt_pageable"] == 0
+    stack_of = tm._id_stack
+    monkeypatch.setattr(tm, "_id_stack",
+                        lambda shape, pinned: stack_of(shape, False))
+    ev = tm.MapEvaluator()
+    assert ev.evaluate_scene(pipe) == got
+    assert ev.timers.count["eval_gt_pageable"] == 2
+    assert ev.timers.count["eval_gt_staged"] == 0
 
 
 def test_clip_pixels_matches_on_finite_values():
