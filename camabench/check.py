@@ -1,19 +1,15 @@
 """The output comparisons that decide `correct`, and their limits.
 
-Each compared number has its limit in limits.json, with the readings the
-limit was set from: the largest of sound runs of the program (lower) and
-the smallest of the control, the reference computed in bfloat16 in the
-program's place (upper).  A run is correct when every number it compares
-is at or under its limit.
+Each compared number has its limit in limits/<name>.json (Spec.limit),
+with the readings the limit was set from: the largest of sound runs of
+the program (lower) and the smallest of the control, the reference
+computed in bfloat16 in the program's place (upper).  A run is correct
+when every number it compares is at or under its limit.
 """
 from __future__ import annotations
 
-import json
-import os
-
 import numpy as np
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 EVAL_KEYS = ("SRE", "precision", "recall", "f1", "n_points", "gt_pixels")
 
 
@@ -32,18 +28,10 @@ def eval_gap(out, ref):
                for k in EVAL_KEYS)
 
 
-def limits(path=os.path.join(HERE, "limits.json")):
-    with open(path) as f:
-        return json.load(f)
-
-
-def judge(numbers, table=None):
-    """(correct, {name: {"value", "limit"}})."""
-    table = table if table is not None else limits()
-    out = {}
-    for name, value in numbers.items():
-        if name not in table:
-            raise KeyError(f"no limit for compared number {name!r}")
-        out[name] = {"value": value, "limit": table[name]["limit"]}
+def judge(numbers, spec):
+    """(correct, {name: {"value", "limit"}}), each number's limit found by
+    its name (spec.limit, which raises on a number that has none)."""
+    out = {name: {"value": value, "limit": spec.limit(name)["limit"]}
+           for name, value in numbers.items()}
     ok = all(v["value"] <= v["limit"] for v in out.values())
     return ok, out

@@ -1,5 +1,5 @@
-"""Readings behind the limits of limits.json: per seed, the numbers a run
-compares, from the program (a short window at the cell's own load) and
+"""Readings behind the limits of limits/<name>.json: per seed, the numbers
+a run compares, from the program (a short window at the cell's own load) and
 from the control, the reference computed in bfloat16 in the program's
 place, on the same inputs, all in one process.
 
@@ -7,7 +7,8 @@ place, on the same inputs, all in one process.
         [--control-seeds 1,2] [--passes 2]
 
 One JSON line per seed: {"seed", "program": {number: value},
-"control": {number: value} or null}.  Needs the card, as run.py does.
+"control": {number: value} or null, "limits": {number: limit}}, each limit
+as run.py judges by it (Spec.limit).  Needs the card, as run.py does.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ def _seeds(spec, workload, cfg, traffic, seeds, control_seeds, passes, device,
     for seed in seeds:
         work_dir = tempfile.mkdtemp(prefix=f"camabench-control-{workload}-")
         try:
-            loop = loops.make(workload, cfg, traffic, seed, device, cache_root,
-                               work_dir, taps)
+            loop = loops.make(spec, workload, cfg, traffic, seed, device, cache_root,
+                              work_dir, taps)
             loop.setup()
             taps.start_window()
             for _ in range(passes):
@@ -57,7 +58,9 @@ def _seeds(spec, workload, cfg, traffic, seeds, control_seeds, passes, device,
             taps.stop_window()
             loop.release()
             gc.collect()
-            out = {"seed": seed, "program": loop.check(), "control": None}
+            program = loop.check()
+            out = {"seed": seed, "program": program, "control": None,
+                   "limits": {k: spec.limit(k)["limit"] for k in program}}
             if seed in control_seeds:
                 out["control"] = loop.control(torch.bfloat16)
             yield out

@@ -5,6 +5,6 @@ UNIT, SOURCE, MOVES = "%", "device_trace", "eval_fps"
 
 
 def read(r):
-    if r.entry != "evaluate_scene" or r.trace is None:
+    if r.produces != "evaluated_frames" or r.trace is None:
         return None
     return 100.0 * (1.0 - r.trace["busy_s"] / r.trace["window_s"])

@@ -5,6 +5,6 @@ UNIT, SOURCE, MOVES = "%", "device_trace", "video_fps"
 
 
 def read(r):
-    if r.entry != "cli" or r.trace is None or r.least_s is None:
+    if r.produces != "video_frames" or r.trace is None or r.least_s is None:
         return None
     return 100.0 * r.least_s / r.trace["busy_s"]

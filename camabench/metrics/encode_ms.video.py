@@ -7,6 +7,6 @@ UNIT, SOURCE, MOVES = "ms/frame", "program_span", "video_fps"
 
 
 def read(r):
-    if r.entry != "cli" or "sink_encode" not in r.timers or not r.frames:
+    if r.produces != "video_frames" or "sink_encode" not in r.timers or not r.frames:
         return None
     return 1e3 * r.timers["sink_encode"] / r.frames

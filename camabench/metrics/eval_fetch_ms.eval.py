@@ -5,6 +5,6 @@ UNIT, SOURCE, MOVES = "ms/frame", "program_span", "eval_fps"
 
 
 def read(r):
-    if r.entry != "evaluate_scene" or "eval_fetch" not in r.timers or not r.frames:
+    if r.produces != "evaluated_frames" or "eval_fetch" not in r.timers or not r.frames:
         return None
     return 1e3 * r.timers["eval_fetch"] / r.frames

@@ -4,4 +4,4 @@ UNIT, SOURCE = "frames/s", "host_clock"
 
 
 def read(r):
-    return r.frames / r.window_s if r.entry == "evaluate_scene" else None
+    return r.frames / r.window_s if r.produces == "evaluated_frames" else None

@@ -8,7 +8,7 @@ PHASES = ("eval_gt_refresh", "eval_layout")
 
 
 def read(r):
-    if (r.entry != "evaluate_scene" or not any(p in r.timers for p in PHASES)
+    if (r.produces != "evaluated_frames" or not any(p in r.timers for p in PHASES)
             or not r.frames):
         return None
     return 1e3 * sum(r.timers.get(p, 0.0) for p in PHASES) / r.frames

@@ -6,6 +6,6 @@ PHASES = ("sparse_fetch", "raster_fetch")
 
 
 def read(r):
-    if r.entry != "cli" or not any(p in r.timers for p in PHASES) or not r.frames:
+    if r.produces != "video_frames" or not any(p in r.timers for p in PHASES) or not r.frames:
         return None
     return 1e3 * sum(r.timers.get(p, 0.0) for p in PHASES) / r.frames

@@ -6,6 +6,6 @@ UNIT, SOURCE, MOVES = "ms/frame", "program_span", "video_fps"
 
 
 def read(r):
-    if r.entry != "cli" or "host_composite" not in r.timers or not r.frames:
+    if r.produces != "video_frames" or "host_composite" not in r.timers or not r.frames:
         return None
     return 1e3 * r.timers["host_composite"] / r.frames

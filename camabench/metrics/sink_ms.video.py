@@ -9,6 +9,6 @@ PHASES = ("sink_open", "sink_wait", "sink_copy", "sink_close")
 
 
 def read(r):
-    if r.entry != "cli" or not any(p in r.timers for p in PHASES) or not r.frames:
+    if r.produces != "video_frames" or not any(p in r.timers for p in PHASES) or not r.frames:
         return None
     return 1e3 * sum(r.timers.get(p, 0.0) for p in PHASES) / r.frames

@@ -8,6 +8,6 @@ PHASES = ("host_decode", "host_composite", "device_dispatch", "sparse_fetch",
 
 
 def read(r):
-    if r.entry != "cli" or "host_composite" not in r.timers or not r.frames:
+    if r.produces != "video_frames" or "host_composite" not in r.timers or not r.frames:
         return None
     return 1e3 * (r.window_s - sum(r.timers.get(p, 0.0) for p in PHASES)) / r.frames

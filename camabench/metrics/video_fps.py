@@ -5,4 +5,4 @@ UNIT, SOURCE = "frames/s", "host_clock"
 
 
 def read(r):
-    return r.frames / r.window_s if r.entry == "cli" else None
+    return r.frames / r.window_s if r.produces == "video_frames" else None

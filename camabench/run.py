@@ -64,8 +64,8 @@ def execute(spec, workload, seed, seconds, trace, device, t_start, cache_root=No
     taps.install()
     error = None
     try:
-        loop = loops.make(workload, cfg, traffic, int(seed) % (1 << 63), device,
-                           cache_root, work_dir, taps)
+        loop = loops.make(spec, workload, cfg, traffic, int(seed) % (1 << 63), device,
+                          cache_root, work_dir, taps)
         loop.setup()
         if on_card:
             torch.cuda.synchronize()
@@ -107,7 +107,7 @@ def execute(spec, workload, seed, seconds, trace, device, t_start, cache_root=No
         if on_card:
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
-        ok, checks = check.judge(loop.check())
+        ok, checks = check.judge(loop.check(), spec)
         print(f"output check took {time.perf_counter() - t_check:.1f} s", file=sys.stderr)
     finally:
         taps.uninstall()
@@ -122,10 +122,10 @@ def execute(spec, workload, seed, seconds, trace, device, t_start, cache_root=No
               f"(busy {summary['busy_s']} s): device metrics left out", file=sys.stderr)
     readings = SimpleNamespace(
         setup_s=setup_s, window_s=window_s, frames=frames, passes=passes - failed,
-        timers=taps.timer_totals(), entry=traffic["entry"],
+        timers=taps.timer_totals(), produces=loop.produces,
         trace=summary if sound_trace else None,
         least_s=(work.least_seconds(window_work, (cfg["output_height"], cfg["output_width"]),
-                                    traffic["device_output"], name)
+                                    spec.output(traffic["device_output"]), name)
                  if sound_trace else None))
     metrics = {}
     for entry in spec.metrics(workload, trace):

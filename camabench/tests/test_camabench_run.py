@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from camabench import check, control, run
+from camabench import control, loops, run
 from camabench.spec import Spec
 from camabench.tests.conftest import REPO
 
@@ -48,11 +48,11 @@ def test_line_and_reference(tiny_root, cache_root, cell, trace):
 def test_control_fails(tiny_root, cache_root, cell, passes):
     """The reference in bfloat16, put in the program's place, exceeds a
     limit; the program on the same inputs does not."""
-    (r,) = control.readings(Spec(root=tiny_root), cell, [9], {9}, passes, "cpu",
-                            cache_root=cache_root)
-    limits = check.limits()
-    assert all(v <= limits[k]["limit"] for k, v in r["program"].items())
-    assert any(v > limits[k]["limit"] for k, v in r["control"].items())
+    spec = Spec(root=tiny_root)
+    (r,) = control.readings(spec, cell, [9], {9}, passes, "cpu", cache_root=cache_root)
+    assert r["limits"] == {k: spec.limit(k)["limit"] for k in r["program"]}
+    assert all(v <= spec.limit(k)["limit"] for k, v in r["program"].items())
+    assert any(v > spec.limit(k)["limit"] for k, v in r["control"].items())
 
 
 def _fault_paint_nothing(mp):
@@ -192,3 +192,24 @@ def test_video_passes_follow_a_label_fix(tiny_root, cache_root, monkeypatch):
     assert error is None and result["correct"], result["checks"]
     passes = result["attempted"] + 1  # the window's and set-up's warm pass
     assert len(lifted) >= passes and len(set(lifted[-passes:])) == passes
+
+
+@pytest.mark.parametrize("first,second", [("scene_video", "scene_eval"),
+                                          ("scene_eval", "scene_video")])
+def test_cells_of_one_config_share_a_cache_root(tiny_root, tmp_path, first, second):
+    """A cli cell (camera images) and an evaluate_scene cell (ground-truth
+    masks) of one configuration and seed, in one cache root, in either
+    order: each finds clips that hold its own fixtures, and both read
+    correct."""
+    cache = str(tmp_path / "cache")
+    for cell in (first, second):
+        result, error = _run(tiny_root, cache, cell, seed=23)
+        assert error is None and result["correct"], (cell, error, result["checks"])
+    spec = Spec(root=tiny_root)
+    keys = {loops.fixture_set(spec.traffic(spec.cell(c)["traffic"]))[0]
+            for c in (first, second)}
+    seeds = os.path.join(cache, "nusc_scene", "seeds", "23")
+    assert len(keys) == 2 and set(os.listdir(seeds)) == keys
+    for key in keys:
+        with open(os.path.join(seeds, key, "scene-0000.complete")) as f:
+            assert "+".join(json.load(f)["needs"]) == key.split("-")[0]

@@ -1,7 +1,9 @@
 """BENCHMARK.json against the benchmark contract, and every name in it
-found as a file: cells, configurations, traffic mixes, metric readers."""
+found as a file: cells, configurations, traffic mixes, metric readers,
+entry kinds, limits and device outputs."""
 from __future__ import annotations
 
+import filecmp
 import json
 import os
 import re
@@ -66,7 +68,11 @@ def test_every_name_is_found(cell):
     w = spec.cell(cell)
     cfg = spec.config(w["config"])
     assert cfg["name"] == w["config"]
-    assert spec.traffic(w["traffic"])["entry"] in ("cli", "evaluate_scene")
+    traffic = spec.traffic(w["traffic"])
+    kind = spec.entry(traffic["entry"])
+    assert isinstance(kind.LOOP, type)
+    assert kind.PRODUCES in ("video_frames", "evaluated_frames")
+    assert callable(spec.output(traffic["device_output"]).work)
     for trace in (False, True):
         for entry in spec.metrics(cell, trace):
             assert callable(spec.reader(entry).read)
@@ -86,11 +92,7 @@ def test_a_cell_from_files_alone(tmp_path, tiny_root, cache_root):
     entries, no file edited."""
     from camabench import run
 
-    here = tmp_path / "camabench"
-    shutil.copytree(os.path.join(Spec().here, "traffic"), here / "traffic")
-    shutil.copytree(os.path.join(Spec().here, "metrics"), here / "metrics")
-    root = tmp_path / "root"
-    shutil.copytree(tiny_root, root)
+    here, root = _copies(tmp_path, tiny_root)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cfg = json.loads((root / "nusc_scene.json").read_text())
     cfg.update(name="nusc_short", label_span_m=[-270.0, -230.0], label_sources=["nuscenes"])
@@ -116,3 +118,132 @@ def test_a_cell_from_files_alone(tmp_path, tiny_root, cache_root):
     assert error is None and result["correct"], result
     assert set(result["metrics"]) == {"passes.video"}
     assert result["metrics"]["passes.video"]["value"] >= 1
+
+
+def _copies(tmp_path, tiny_root):
+    """A copy of camabench/ (caches left out) and of the tiny root."""
+    here = tmp_path / "camabench"
+    shutil.copytree(Spec().here, here, ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    root = tmp_path / "root"
+    shutil.copytree(tiny_root, root)
+    return here, root
+
+
+# limits.json's entries when the limits were one file, moved one to a file
+LIMITS = {
+    "frames_gap": {
+        "limit": 0, "lower": 0, "upper": None,
+        "about": "frames a sink wrote in a pass, or a pass evaluated, off the reference's "
+                 "count: exact"},
+    "overlay_mismatch": {
+        "limit": 0.04, "lower": 0.0014446826358467705, "upper": 1.0363662091410784,
+        "about": "lower: the largest of 121 sound runs of the video cells on the card (82 "
+                 "before every pass followed a label fix, 39 after); upper: the smallest of "
+                 "12 control seeds, the reference's projection in bfloat16 (1.036-1.128)"},
+    "eval_gap": {
+        "limit": 0.005, "lower": 1.3264219032199164e-05, "upper": 0.8736754813506801,
+        "about": "lower: the largest of 55 sound runs of wide_eval on the card with the "
+                 "final ground-truth draw; upper: the smallest of 3 control seeds of that "
+                 "draw (bfloat16 projection)"},
+}
+
+
+@pytest.mark.parametrize("name", list(LIMITS))
+def test_limits_carried_over(name):
+    assert Spec().limit(name) == LIMITS[name]
+
+
+STUB_ENTRY = '''"""A video entry kind whose check also compares a number of its own."""
+import importlib.util
+import os
+
+_spec = importlib.util.spec_from_file_location(
+    "stub_cli", os.path.join(os.path.dirname(__file__), "cli.py"))
+cli = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cli)
+
+
+class Checked(cli.LOOP):
+    def check(self):
+        return {**super().check(), "stub_gap": float(self.traffic["stub_gap"])}
+
+
+LOOP, PRODUCES = Checked, "video_frames"
+'''
+STUB_OUTPUT = '''def work(kept, eff, size, steps=0):
+    return 8 * sum(eff) + 16 * steps, 3 * len(kept) + 100 * steps
+'''
+
+
+def test_kind_limit_output_from_files_alone(tmp_path, tiny_root, cache_root):
+    """An entry kind, a compared number with its limit and a device output,
+    each a new file in a copy of camabench/: a cell of the new kind runs,
+    reports video_fps through the existing reader, is judged by the new
+    limit, and the yardstick counts the new output.  No file of the copy
+    was edited."""
+    from camabench import check, run, work
+
+    here, root = _copies(tmp_path, tiny_root)
+    (here / "entries" / "checked_video.py").write_text(STUB_ENTRY)
+    (here / "limits" / "stub_gap.json").write_text(json.dumps(
+        {"limit": 0.5, "lower": 0.0, "upper": 1.0, "about": "test"}))
+    (here / "outputs" / "stub_lists.py").write_text(STUB_OUTPUT)
+    traffic = json.loads((here / "traffic" / "one_scene_videos.json").read_text())
+    traffic.update(entry="checked_video", device_output="stub_lists", stub_gap=0.25,
+                   sample_frames=3)
+    (here / "traffic" / "checked_videos.json").write_text(json.dumps(traffic))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "checked_video", "config": "nusc_scene",
+                               "traffic": "checked_videos", "chips": 1, "why": "test"})
+    for m in bench["end_to_end"]:
+        if "scene_video" in m.get("workloads", []):
+            m["workloads"].append("checked_video")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    spec = Spec(root=str(root), here=str(here))
+
+    result, error = run.execute(spec, "checked_video", 5, 0.5, False, "cpu", 0.0,
+                                cache_root=cache_root)
+    assert error is None and result["correct"], result
+    assert set(result["metrics"]) == {"video_fps", "setup_s"}
+    assert result["checks"]["stub_gap"] == {"value": 0.25, "limit": 0.5}
+    assert set(result["checks"]) == {"frames_gap", "overlay_mismatch", "stub_gap"}
+    assert check.judge({"stub_gap": 0.75}, spec) == (
+        False, {"stub_gap": {"value": 0.75, "limit": 0.5}})
+    with pytest.raises(KeyError, match="no limit"):
+        check.judge({"unknown_gap": 0.0}, spec)
+
+    frame = (100, [10, 20], [5, 7])
+    base = work.frame_work(100, *frame, (4, 4), spec.output("lists"))
+    lists = (4 * 12 + 4 * 2, 0)
+    stub = work.frame_work(100, *frame, (4, 4), spec.output("stub_lists"))
+    assert stub == (base[0] - lists[0] + 8 * 12, base[1] - lists[1] + 3 * 2)
+    # a field a loop appends to a frame's record reaches its output alone
+    stub_steps = work.frame_work(100, *frame, (4, 4), spec.output("stub_lists"), 5)
+    assert stub_steps == (stub[0] + 16 * 5, stub[1] + 100 * 5)
+    card = "NVIDIA H100 80GB HBM3"
+    assert work.least_seconds([("cama", 100, [(*frame, 5)] * 3)], (4, 4),
+                              spec.output("stub_lists"), card) == pytest.approx(
+        3 * max(stub_steps[0] / 3.35e12, stub_steps[1] / 67e12))
+
+    added = {"entries/checked_video.py", "limits/stub_gap.json", "outputs/stub_lists.py",
+             "traffic/checked_videos.json"}
+    original = Spec().here
+    for d, dirs, files in os.walk(here):
+        dirs[:] = [x for x in dirs if x not in (".cache", "__pycache__")]
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), here)
+            if rel in added:
+                added.discard(rel)
+                continue
+            assert filecmp.cmp(os.path.join(d, f), os.path.join(original, rel),
+                               shallow=False), rel
+    assert not added
+
+
+def test_unknown_entry_kind_raises(tiny_root, cache_root):
+    from camabench import loops
+
+    spec = Spec(root=tiny_root)
+    with pytest.raises(ValueError, match="unknown traffic entry"):
+        loops.make(spec, "scene_video", spec.config("nusc_scene"), {"entry": "no_such_kind"},
+                   1, "cpu", cache_root, cache_root, None)
