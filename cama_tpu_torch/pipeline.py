@@ -45,9 +45,11 @@ package's adaptive warm-up lane is not part of this package.
 """
 from __future__ import annotations
 
+import errno
 import hashlib
 import json
 import os
+import stat
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -402,6 +404,82 @@ def resolve_device(device):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+# A camera's lane_ins directory is opened once, for the files inside it to be
+# opened relative to it: O_PATH where the system has it, since that asks only
+# for search permission on the directory, as a path walk through it does.
+_GT_DIR_FLAGS = getattr(os, "O_PATH", os.O_RDONLY) | os.O_DIRECTORY
+
+
+def _hash_span(h, fd, offset, n):
+    """Feeds h the n bytes at offset, in preads of at most 1 MiB (a pread
+    may return fewer bytes than asked); fewer only where the file ends."""
+    end = offset + n
+    while offset < end:
+        blk = os.pread(fd, min(end - offset, 1 << 20), offset)
+        if not blk:
+            break
+        h.update(blk)
+        offset += len(blk)
+
+
+def _sign_png(dir_fd, name, full):
+    """(size, sha256 digest) of one file opened relative to its directory:
+    the digest of its first and last 8 KiB (every byte of a file of up to
+    16 KiB), or with `full` of every byte.  Raises OSError where the file
+    cannot be read, a directory under its name included."""
+    fd = os.open(name, os.O_RDONLY, dir_fd=dir_fd)
+    try:
+        st = os.fstat(fd)
+        if stat.S_ISDIR(st.st_mode):  # as open() refuses one
+            raise IsADirectoryError(errno.EISDIR, os.strerror(errno.EISDIR),
+                                    name)
+        size = st.st_size
+        h = hashlib.sha256()
+        if full or size <= 16384:
+            _hash_span(h, fd, 0, size)
+        else:
+            _hash_span(h, fd, 0, 8192)
+            _hash_span(h, fd, size - 8192, 8192)
+        return size, h.digest()
+    finally:
+        os.close(fd)
+
+
+def _gt_png_signature(clip_path, camera_list, sync_ms, full):
+    """(sha256 hex digest, files signed) of the lane_ins PNGs a scene lists,
+    folded per camera and frame in list order: "{cam}:{ms}:{size}:", the
+    file's digest (_sign_png) and ";", or "{cam}:{ms}:absent;" where the
+    file cannot be read (every frame of a missing camera directory).  Each
+    camera's directory is opened once and its files relative to it."""
+    h = hashlib.sha256()
+    n_files = 0
+    for cam in camera_list:
+        try:
+            dfd = os.open(os.path.join(clip_path, f"lane_ins_{cam}"),
+                          _GT_DIR_FLAGS)
+        except OSError:
+            dfd = None
+        try:
+            for ms in sync_ms[cam]:
+                n_files += 1
+                signed = None
+                if dfd is not None:
+                    try:
+                        signed = _sign_png(dfd, f"{ms}.png", full)
+                    except OSError:
+                        pass  # signs absent
+                if signed is None:
+                    h.update(f"{cam}:{ms}:absent;".encode())
+                    continue
+                h.update(f"{cam}:{ms}:{signed[0]}:".encode())
+                h.update(signed[1])
+                h.update(b";")
+        finally:
+            if dfd is not None:
+                os.close(dfd)
+    return h.hexdigest(), n_files
 
 
 class ClipPipeline:
@@ -986,14 +1064,20 @@ class ClipPipeline:
                 cache_dir, os.path.basename(os.path.normpath(scene.clip_path)))
         return os.path.join(scene.clip_path, ".cama_tpu")
 
+    def _calibration_key(self):
+        """The stores' key part for the scene's cameras, output size and
+        frame times."""
+        scene = self.scene
+        return frame_cache_key(
+            scene.camera_list, scene.output_size, scene.K_orig,
+            scene.d, scene.K_scaled, scene.sync_ms,
+        )
+
     def _build_frame_cache(self):
         scene = self.scene
         if not self.configs.get("frame_cache", True):
             return None
-        key = frame_cache_key(
-            scene.camera_list, scene.output_size, scene.K_orig,
-            scene.d, scene.K_scaled, scene.sync_ms,
-        )
+        key = self._calibration_key()
         if self.configs.get("fast_decode"):
             key = "fast2:" + key  # reduced-decode pixels differ
         return FrameCache.open(
@@ -1029,53 +1113,35 @@ class ClipPipeline:
         through either window, except a middle-only rewrite of a file over
         16 KiB.  configs['gt_cache_full_hash'] hashes the entire file,
         closing that hole at the cost of reading every PNG once per key
-        resolution."""
-        full = bool(self.configs.get("gt_cache_full_hash"))
+        resolution.  self.timers counts the files signed, 'gt_key_files'
+        (a frame whose PNG is missing included)."""
         scene = self.scene
-        h = hashlib.sha256()
-        for cam in scene.camera_list:
-            d = os.path.join(scene.clip_path, f"lane_ins_{cam}")
-            for ms in scene.sync_ms[cam]:
-                path = os.path.join(d, f"{ms}.png")
-                try:
-                    st = os.stat(path)
-                    with open(path, "rb") as f:
-                        if full:
-                            h2 = hashlib.sha256()
-                            for blk in iter(lambda: f.read(1 << 20), b""):
-                                h2.update(blk)
-                        else:
-                            h2 = hashlib.sha256(f.read(8192))
-                            if st.st_size > 16384:
-                                f.seek(-8192, os.SEEK_END)
-                            h2.update(f.read(8192))
-                    h.update(f"{cam}:{ms}:{st.st_size}:".encode())
-                    h.update(h2.digest())
-                    h.update(b";")
-                except OSError:
-                    h.update(f"{cam}:{ms}:absent;".encode())
-        return h.hexdigest()
+        key, n_files = _gt_png_signature(
+            scene.clip_path, scene.camera_list, scene.sync_ms,
+            bool(self.configs.get("gt_cache_full_hash")))
+        self.timers.add("gt_key_files", 0.0, n_files)
+        return key
 
     def _gt_cache_key(self):
-        scene = self.scene
-        return f"gt:{self._gt_stat_key()}:" + frame_cache_key(
-            scene.camera_list, scene.output_size, scene.K_orig,
-            scene.d, scene.K_scaled, scene.sync_ms,
-        )
+        return f"gt:{self._gt_stat_key()}:" + self._calibration_key()
 
     def refresh_gt_cache(self):
         """Re-check the GT PNG population signature and drop a stale GT-mask
         store (the next access resolves against the fresh key).  Called by
         MapEvaluator at every evaluate_scene* entry, so masks regenerated
         mid-process are picked up at the next evaluation.  Cost per call:
-        one stat and two 8 KiB reads per PNG, or a full-content hash under
-        configs['gt_cache_full_hash']."""
+        one open of each camera's lane_ins directory, then per PNG an open
+        relative to it, an fstat, one pread (two of 8 KiB for a file over
+        16 KiB; 1 MiB preads over the whole file under
+        configs['gt_cache_full_hash']) and a close.  self.timers counts the
+        refreshes that dropped the store, 'gt_key_stale'."""
         with self._fcache_lock:
             cache = self._gtcache
             if cache in (False, None):
                 return  # unresolved (next access builds fresh) or disabled
             if self._gt_cache_key() != cache.key:
                 self._gtcache = False  # stale: resolve again on next access
+                self.timers.add("gt_key_stale", 0.0)
 
     def _build_gt_cache(self):
         scene = self.scene

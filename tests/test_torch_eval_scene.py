@@ -21,6 +21,7 @@ from cama_tpu.eval import map_metrics as jm
 from cama_tpu.io import fixture as jfixture
 from cama_tpu.io.scene import compile_scene as jcompile_scene
 from cama_tpu.pipeline import ClipPipeline as JClipPipeline
+from cama_tpu_torch import pipeline as tpipeline
 from cama_tpu_torch.eval import map_metrics as tm
 from cama_tpu_torch.io.fixture import add_instance_masks, make_fixture_clip
 from cama_tpu_torch.io.scene import compile_scene
@@ -317,3 +318,164 @@ def test_evaluator_rejects_unknown_settings():
     for kw in ({"compact": "on"}, {"resident": "yes"}, {"backend": "tpu"}):
         with pytest.raises(ValueError):
             tm.MapEvaluator(**kw)
+
+
+# --- the GT store's signature: the port's reader against the JAX
+# package's serial one, which shares the store and so the key's bytes
+
+
+@pytest.fixture(scope="module")
+def gt_clip(tmp_path_factory):
+    """A 3-frame clip with masks (frame 0 has none): the pristine copy that
+    each signature test copies before it edits."""
+    root = tmp_path_factory.mktemp("tgtkey")
+    clip = make_fixture_clip(root, scene_name="gtkey", n_frames=3,
+                             with_images=False, with_lidar=False)
+    add_instance_masks(clip)
+    return clip
+
+
+def _gt_copy(gt_clip, tmp_path):
+    clip = str(shutil.copytree(gt_clip, tmp_path / "clip"))
+    shutil.rmtree(os.path.join(clip, ".cama_tpu"), ignore_errors=True)
+    return clip
+
+
+def _gt_png(clip, cam="camera_front", frame=1):
+    ms = compile_scene(clip, output_size=SMALL).sync_ms[cam][frame]
+    return os.path.join(clip, f"lane_ins_{cam}", f"{ms}.png")
+
+
+def _write_bytes(path, size):
+    with open(path, "wb") as f:
+        f.write(np.random.default_rng(size).bytes(size))
+
+
+def _gt_keys(clip, full):
+    pipe = ClipPipeline({"gt_cache_full_hash": full}, clip, device="cpu")
+    jpipe = JClipPipeline(clip_path=clip,
+                          configs={"gt_cache_full_hash": full})
+    return pipe._gt_cache_key(), jpipe._gt_cache_key()
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["windows", "full_hash"])
+@pytest.mark.parametrize("case", [
+    "as_written", "size_8192", "size_8193", "size_16384", "size_16385",
+    "size_2_5_mib", "removed_png", "removed_camera", "directory_for_png",
+    "search_only_camera"])
+def test_gt_key_equals_the_jax_packages(gt_clip, tmp_path, case, full):
+    """Byte for byte, on each edge of the head and tail windows (a file of
+    up to 8 KiB, up to 16 KiB, above), a file of several 1 MiB blocks, each
+    way a frame signs absent, and a camera directory that may be searched
+    but not listed, whose files a path walk still reads."""
+    clip = _gt_copy(gt_clip, tmp_path)
+    png = _gt_png(clip)
+    if case.startswith("size_"):
+        size = {"size_2_5_mib": 5 << 19}.get(case) or int(case[5:])
+        _write_bytes(png, size)
+        assert os.path.getsize(png) == size
+    elif case == "removed_png":
+        os.remove(png)
+    elif case == "removed_camera":
+        shutil.rmtree(os.path.dirname(png))
+    elif case == "directory_for_png":
+        os.remove(png)
+        os.mkdir(png)
+    elif case == "search_only_camera":
+        os.chmod(os.path.dirname(png), 0o111)
+    try:
+        key, jkey = _gt_keys(clip, full)
+    finally:
+        if case == "search_only_camera":  # for the clean-up to list it
+            os.chmod(os.path.dirname(png), 0o755)
+    assert key == jkey
+    assert (key == _gt_keys(gt_clip, full)[0]) == (
+        case in ("as_written", "search_only_camera"))
+
+
+def test_short_preads_sign_the_same(gt_clip, tmp_path, monkeypatch):
+    """A pread may return fewer bytes than asked before end of file: the
+    reader asks again until its window is full."""
+    clip = _gt_copy(gt_clip, tmp_path)
+    _write_bytes(_gt_png(clip), 40000)
+    _write_bytes(_gt_png(clip, "camera_rear", 2), 12000)
+    want = [_gt_keys(clip, full)[1] for full in (False, True)]
+    pread = os.pread
+    calls = []
+
+    def short_pread(fd, n, offset):
+        calls.append(n)
+        return pread(fd, min(n, 1000), offset)
+
+    monkeypatch.setattr(tpipeline.os, "pread", short_pread)
+    got = [ClipPipeline({"gt_cache_full_hash": full}, clip,
+                        device="cpu")._gt_cache_key() for full in (False, True)]
+    assert got == want
+    assert any(n > 1000 for n in calls)
+
+
+def _remask_head(png):
+    """A real re-mask that keeps the file's size: one instance erased, the
+    PNG encoded again and padded after its end chunk to the old size (a
+    decoder stops at IEND).  Returns the new mask."""
+    import cv2
+
+    old = open(png, "rb").read()
+    mask = cv2.imread(png, cv2.IMREAD_UNCHANGED)
+    mask[mask == mask.max()] = 0
+    ok, enc = cv2.imencode(".png", mask)
+    enc = enc.tobytes()
+    assert ok and len(enc) <= len(old)
+    with open(png, "wb") as f:
+        f.write(enc + bytes(len(old) - len(enc)))
+    assert os.path.getsize(png) == len(old)
+    assert open(png, "rb").read(8192) != old[:8192]  # in the head window
+    np.testing.assert_array_equal(cv2.imread(png, cv2.IMREAD_UNCHANGED),
+                                  mask)
+    return mask
+
+
+def test_remasked_png_drops_the_store_and_rebuilds(gt_clip, tmp_path):
+    clip = _gt_copy(gt_clip, tmp_path)
+    pipe = _pipe(clip)
+    first = tm.MapEvaluator().evaluate_scene(pipe)
+    cache = pipe.gt_mask_cache()
+    cache.flush()
+    n_listed = sum(len(pipe.scene.sync_ms[cam])
+                   for cam in pipe.scene.camera_list)
+    files = pipe.timers.count["gt_key_files"]
+    pipe.refresh_gt_cache()  # unchanged: every listed file signed, kept
+    assert pipe.timers.count["gt_key_files"] == files + n_listed
+    assert pipe.timers.count["gt_key_stale"] == 0
+    assert pipe.gt_mask_cache() is cache
+
+    _remask_head(_gt_png(clip))
+    assert pipe._gt_cache_key() != cache.key
+    after = tm.MapEvaluator().evaluate_scene(pipe)
+    assert pipe.timers.count["gt_key_stale"] == 1
+    rebuilt = pipe.gt_mask_cache()
+    assert rebuilt is not cache and rebuilt.key != cache.key
+    assert after != first
+    assert after == tm.MapEvaluator(resident="off").evaluate_scene(
+        ClipPipeline(scene=compile_scene(clip, output_size=SMALL), chunk=4,
+                     device="cpu"))
+
+
+def test_full_hash_catches_middle_rewrite(gt_clip, tmp_path):
+    """A same-size rewrite of a large PNG's middle passes the head and tail
+    windows (the documented hole) and is caught under gt_cache_full_hash,
+    whose refresh drops the store."""
+    clip = _gt_copy(gt_clip, tmp_path)
+    png = _gt_png(clip)
+    _write_bytes(png, 100000)
+    windows = ClipPipeline(None, clip, device="cpu")
+    full = ClipPipeline({"gt_cache_full_hash": True}, clip, device="cpu")
+    key = windows._gt_cache_key()
+    cache = full.gt_mask_cache()
+    with open(png, "r+b") as f:
+        f.seek(50000)
+        f.write(b"\xff" * 64)
+    assert windows._gt_cache_key() == key
+    full.refresh_gt_cache()
+    assert full.timers.count["gt_key_stale"] == 1
+    assert full.gt_mask_cache().key != cache.key
