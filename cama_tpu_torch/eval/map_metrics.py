@@ -32,10 +32,17 @@ device='cpu'.
 Instance-id images are uint16, on the host and on the device.  PyTorch
 computes little on uint16, so the functions here reinterpret such a tensor
 as int16 (the same bits) where they only move ids around, and widen it to
-int32 where they compare them.  An evaluator on the card builds each
-chunk's id stack in page-locked host memory and sends it as it stands
-(_id_stack, device_ids); the JAX package sends sparse stacks as COO pairs
-instead, and the ids on the device are the same.
+int32 where they compare them.
+
+MapEvaluator's entries on one device (evaluate_scene, _instances, _all and
+_batch) share one chunk loop, MapEvaluator._evaluate: _chunk_layout lays
+out the chunks, _chunk_gt copies a chunk's GT ids into one stack (on the
+card in page-locked host memory, _id_stack), device_ids sends it as it
+stands in one copy, and the GT fields derived there (_gt_fields) are
+sampled at the projected points (_eval_core, or _sample_fields per row for
+a batch of scenes).  A whole-scene evaluation keeps each chunk's fields on
+the device for the next one.  The JAX package sends sparse stacks as COO
+pairs instead, and the ids on the device are the same.
 """
 from __future__ import annotations
 
@@ -267,23 +274,6 @@ def packbits(bits):
     return (b * weights).sum(dim=-1, dtype=torch.uint8)
 
 
-def frame_metrics_chunk_packed(gt_packed, vu, keep, fv, width, max_radius,
-                               tolerance, distance="chebyshev"):
-    """frame_metrics_chunk fed by host-bitpacked masks ([K, C, H, W/8] uint8
-    via np.packbits(axis=-1)): an eighth of the bytes go to the device."""
-    gt = _unpack_bits(gt_packed, width)
-    return frame_metrics_chunk(gt, vu, keep, fv, max_radius, tolerance,
-                               distance)
-
-
-def frame_metrics_rows_packed(gt_packed, vu, keep, width, max_radius,
-                              tolerance, distance="chebyshev"):
-    """frame_metrics_rows fed by host-bitpacked masks (see
-    frame_metrics_chunk_packed): [K, ...] -> dict of [K] per-row partials."""
-    gt = _unpack_bits(gt_packed, width)
-    return frame_metrics_rows(gt, vu, keep, max_radius, tolerance, distance)
-
-
 def _project_compact_chunk_eval(points, valid, A, B, fv, width, height,
                                 lo, hi, k1):
     """Chunked projection with crop-first compaction (the overlay two-stage
@@ -343,8 +333,8 @@ def device_ids(ids_b, device="cuda", timers=None):
     """A chunk's GT instance-id stack as the same uint16 stack on `device`.
 
     A stack in page-locked memory (_id_stack's) goes to the card as it
-    stands, with one non-blocking copy; any other array takes _upload's
-    pinned copy first.  On the card, `timers` (a PhaseTimers) counts each
+    stands, with one non-blocking copy; any other array is first copied
+    into page-locked memory.  On the card, `timers` (a PhaseTimers) counts each
     stack as eval_gt_staged or eval_gt_pageable.  The JAX package sends a
     sparse stack as COO pairs to spare its host link; here the host's scan
     for the nonzero ids cost more than the dense copy it saved, so the port
@@ -355,16 +345,14 @@ def device_ids(ids_b, device="cuda", timers=None):
             # out-of-range ids wrap into other instances' votes silently
             raise ValueError("instance ids exceed uint16")
         ids_b = ids_b.astype(np.uint16)
+    t = torch.from_numpy(ids_b)
     device = torch.device(device)
-    if device.type == "cuda":
-        t = torch.from_numpy(ids_b)
-        staged = t.is_pinned()
-        if timers is not None:
-            timers.add("eval_gt_staged" if staged else "eval_gt_pageable",
-                       0.0)
-        if staged:
-            return t.to(device, non_blocking=True)
-    return _upload(ids_b, device)
+    if device.type != "cuda":
+        return t.to(device)
+    staged = t.is_pinned()
+    if timers is not None:
+        timers.add("eval_gt_staged" if staged else "eval_gt_pageable", 0.0)
+    return (t if staged else t.pin_memory()).to(device, non_blocking=True)
 
 
 def _dist_rounds(max_radius, tolerance, distance):
@@ -379,9 +367,8 @@ def _dist_rounds(max_radius, tolerance, distance):
 
 def _dist_field(gt_mask, rounds, distance):
     """GT distance field the per-point metric sums sample: a pure function
-    of the masks and the caps, so the resident evaluation path computes it
-    once per chunk and keeps it on the device across evaluations
-    (MapEvaluator._eval_scene_resident).
+    of the masks and the caps, so an evaluator computes it once per chunk
+    and may keep it on the device across evaluations (MapEvaluator._retain).
 
     chebyshev: per-pixel not-covered count over `rounds` dilation passes
     (dist[p] = min(chessboard distance to mask, rounds)), as uint8:
@@ -403,9 +390,9 @@ def _dist_field(gt_mask, rounds, distance):
 
 def _vote_field(gt_ids, tolerance, assignment):
     """Per-pixel GT instance vote map (0 = no instance within tolerance):
-    instance_votes_chunk's state before the gather, split out so the
-    resident path can keep it on the device (it too is a pure function of
-    the GT ids and the tolerance)."""
+    instance_votes_chunk's state before the gather, split out so an
+    evaluator can keep it on the device (it too is a pure function of the
+    GT ids and the tolerance)."""
     ids = _wide(gt_ids)
     if assignment == "nearest":
         d2, nid = nearest_id_within(ids, int(tolerance))
@@ -702,33 +689,52 @@ def instance_votes_chunk(gt_ids, vu, keep, tolerance, assignment="nearest"):
     return _gather_at(_bits16(gt_d), vi, ui).view(gt_ids.dtype)
 
 
-def _metrics_and_votes_chunk(gt_ids, vu, keep, fv, max_radius, tolerance,
-                             distance, assignment):
-    """Chunk step of evaluate_scene_all: binary SRE/P/R partials and
-    instance votes from one upload of the GT ids."""
-    p = frame_metrics_chunk(_foreground(gt_ids), vu, keep, fv, max_radius,
-                            tolerance, distance)
-    votes = instance_votes_chunk(gt_ids, vu, keep, tolerance, assignment)
-    return p, votes
+# ---------------------------------------------------------------------------
+# the device chunk step: GT fields derived from a chunk's ids on the card,
+# sampled at the projected points; the fields are pure functions of the GT
+# masks and the caps, so an evaluator may keep them on the device
+# ---------------------------------------------------------------------------
 
 
-# ---------------------------------------------------------------------------
-# resident-field evaluation: projection + metric sums per chunk, sampling
-# GT-derived distance/vote fields that are computed once and stay on the
-# device across evaluations
-# ---------------------------------------------------------------------------
+def _gt_fields(gt_ids, max_radius, tolerance, distance, assignment, metrics,
+               votes):
+    """A chunk's GT fields, derived from its ids [..., C, H, W] where they
+    lie: (the foreground mask, the distance field when `metrics`, the vote
+    field when `votes`; None for a field not asked for)."""
+    gt_mask = _foreground(gt_ids)
+    dist_fd = (_dist_field(gt_mask, _dist_rounds(max_radius, tolerance,
+                                                 distance), distance)
+               if metrics else None)
+    vote_fd = _vote_field(gt_ids, tolerance, assignment) if votes else None
+    return gt_mask, dist_fd, vote_fd
+
+
+def _sample_fields(gt_mask, dist_field, vote_field, vu, keep, max_radius,
+                   tolerance, distance):
+    """The GT fields sampled at the projected points vu/keep [..., C, P', 2]
+    / [..., C, P']: (per-row metric partials, a dict of [...] tensors, or
+    None without a distance field; votes [..., C, P'] in the vote field's
+    dtype, or None without a vote field)."""
+    rows = votes = None
+    if dist_field is not None:
+        rows = _frame_metrics_from_field(gt_mask, dist_field, vu, keep,
+                                         max_radius, tolerance, distance)
+    if vote_field is not None:
+        vi, ui = _clip_pixels(vu, *vote_field.shape[-2:])
+        votes = _gather_at(_bits16(vote_field), vi, ui).view(vote_field.dtype)
+    return rows, votes
 
 
 def _eval_core(points, valid, A, B, fvb, dist_field, gt_mask, vote_field,
                width, height, lo, hi, k1, max_radius, tolerance, distance):
-    """Shared body of the evaluation chunk: project (crop-compacted to k1
-    when engaged), then sample the GT fields.  fvb [K] bool gates both the
-    projection's frame_valid and the metric row weights: a row is live only
-    when its frame is valid and its GT masks exist, exactly the rows the
-    chunked path weights by fv.
+    """One scene's chunk: project (crop-compacted to k1 when engaged), then
+    sample the GT fields.  fvb [K] bool gates both the projection's
+    frame_valid and the metric row weights: a row is live only when its
+    frame is valid and its GT masks exist.
 
-    Returns (partials dict of 0-d tensors, votes [K, C, P'] or None,
-    keep [K, C, P'], sel [K, P'] int32 or None)."""
+    Returns (partials dict of 0-d tensors, or None without a distance
+    field; votes [K, C, P'] or None; keep [K, C, P']; sel [K, P'] int32 or
+    None)."""
     if k1 is not None:
         vu, keep, sel = _project_compact_chunk_eval(
             points, valid, A, B, fvb, width, height, lo, hi, k1)
@@ -736,43 +742,38 @@ def _eval_core(points, valid, A, B, fvb, dist_field, gt_mask, vote_field,
         vu, keep = project_frames(points, valid, A, B, fvb, width, height,
                                   lo, hi)
         sel = None
-    rows = _frame_metrics_from_field(gt_mask, dist_field, vu, keep,
-                                     max_radius, tolerance, distance)
-    z = fvb.to(torch.float32)
-    partials = {k2: torch.sum(v * z) for k2, v in rows.items()}
-    votes = None
-    if vote_field is not None:
-        H, W = gt_mask.shape[-2], gt_mask.shape[-1]
-        vi, ui = _clip_pixels(vu, H, W)
-        votes = _gather_at(_bits16(vote_field), vi, ui).view(vote_field.dtype)
+    rows, votes = _sample_fields(gt_mask, dist_field, vote_field, vu, keep,
+                                 max_radius, tolerance, distance)
+    partials = None
+    if rows is not None:
+        z = fvb.to(torch.float32)
+        partials = {k2: torch.sum(v * z) for k2, v in rows.items()}
     return partials, votes, keep, sel
 
 
 def _eval_chunk_build(points, valid, A, B, fvb, gt_ids, width, height, lo, hi,
                       k1, max_radius, tolerance, distance, assignment,
-                      want_votes):
-    """First-visit chunk: derive the GT fields from the uploaded ids and
-    evaluate.  Returns the evaluation outputs plus the derived fields
-    (dist_field, the GT mask bitpacked, vote field or None), which the
-    caller retains as the resident cache."""
-    gt_mask = _foreground(gt_ids)
-    dist_fd = _dist_field(gt_mask, _dist_rounds(max_radius, tolerance,
-                                                distance), distance)
-    vote_fd = (_vote_field(gt_ids, tolerance, assignment)
-               if want_votes else None)
+                      want_votes, want_metrics=True):
+    """A chunk whose fields are not kept: derive them from the ids on the
+    device (_gt_fields) and evaluate.  Returns the evaluation outputs plus
+    the fields (distance field, the GT mask bitpacked, vote field; None
+    where not asked for), which the caller may keep."""
+    gt_mask, dist_fd, vote_fd = _gt_fields(gt_ids, max_radius, tolerance,
+                                           distance, assignment,
+                                           want_metrics, want_votes)
     partials, votes, keep, sel = _eval_core(
         points, valid, A, B, fvb, dist_fd, gt_mask, vote_fd,
         width, height, lo, hi, k1, max_radius, tolerance, distance)
-    gtp = packbits(gt_mask)
+    gtp = packbits(gt_mask) if want_metrics else None
     return partials, votes, keep, sel, dist_fd, gtp, vote_fd
 
 
 def _eval_chunk_serve(points, valid, A, B, fvb, dist_field, gtp, vote_field,
                       width, height, lo, hi, k1, max_radius, tolerance,
                       distance):
-    """Steady-state chunk: the points, the frame matrices and the GT fields
-    already lie on the device, and nothing is uploaded."""
-    gt_mask = _unpack_bits(gtp, width)
+    """A chunk whose fields are kept: the points, the frame matrices and the
+    fields already lie on the device, and nothing is uploaded."""
+    gt_mask = None if gtp is None else _unpack_bits(gtp, width)
     return _eval_core(points, valid, A, B, fvb, dist_field, gt_mask,
                       vote_field, width, height, lo, hi, k1, max_radius,
                       tolerance, distance)
@@ -794,7 +795,7 @@ def frame_instance_pairs(gt_ids, vu, keep, point_inst, tolerance,
     """
     keep_np = np.asarray(keep)
     g_at = instance_votes_chunk(
-        _upload(np.asarray(gt_ids), device)[None],
+        device_ids(np.asarray(gt_ids), device)[None],
         _upload(np.asarray(vu, np.float32), device)[None],
         _upload(keep_np, device)[None], tolerance, assignment)[0].cpu().numpy()
     mi = np.broadcast_to(np.asarray(point_inst)[None, :], keep_np.shape)[keep_np]
@@ -894,12 +895,38 @@ def _fetch_optional(tensors, on_card):
     return tuple(None if t is None else next(it) for t in tensors), done
 
 
+def _fold_votes(sink, inst, votes, keep):
+    """One evaluated row's (map instance, GT instance) vote pairs into an
+    association sink: inst [P'] the map instance id of each of the row's
+    points, votes / keep [C, P']."""
+    sink["mi"].append(
+        np.broadcast_to(inst[None, :], keep.shape)[keep].astype(np.int64))
+    sink["gi"].append(votes[keep].astype(np.int64))
+
+
 class MapEvaluator:
     """Scene-level SRE/precision/recall/F1 over reprojected map elements.
-    The device work runs on the evaluated pipeline's device."""
+    The device work runs on the evaluated pipeline's device.  Every entry
+    on one device (evaluate_scene, evaluate_scene_instances,
+    evaluate_scene_all, evaluate_scene_batch) runs one chunk loop,
+    _evaluate."""
+
+    # device memory the GT fields one evaluator keeps may take: beyond it,
+    # later chunks are evaluated and not kept (long scenes do not crowd out
+    # the overlay pipeline)
+    RESIDENT_BUDGET_MB = 2048.0
+    # device-vote backlog bound (chunks): enough in flight to overlap host GT
+    # loading with device work, small enough that vote buffers stay O(1) in
+    # scene length (a [K, C, P] uint16 + bool pair per chunk can be tens of
+    # MB at production point counts)
+    MAX_PENDING_CHUNKS = 4
+
+    _EMPTY_ASSOCIATION = {"instance_precision": 0.0, "instance_recall": 0.0,
+                          "mean_purity": 0.0, "n_map_instances": 0,
+                          "n_gt_instances": 0}
 
     def __init__(self, tolerance=5, max_radius=20, distance="chebyshev",
-                 backend="device", compact="auto", resident="auto"):
+                 backend="device", compact="auto"):
         import weakref
 
         from cama_tpu_torch.profiling import PhaseTimers
@@ -909,18 +936,6 @@ class MapEvaluator:
         self.distance = distance
         if compact not in ("auto", "off"):
             raise ValueError(f"unknown compact {compact!r}")
-        if resident not in ("auto", "off"):
-            raise ValueError(f"unknown resident {resident!r}")
-        # 'auto': full-scene device evaluations keep the GT-derived distance
-        # and vote fields on the device (keyed by the GT store's content
-        # key) and run the projection and the metric sums per chunk against
-        # them; the steady state uploads nothing.  Fields are pure functions
-        # of the cached GT masks and the caps, so results are identical.
-        # 'off' forces the per-evaluation upload and transform path.
-        self.resident = resident
-        # pipeline -> {"bytes": int, "chunks": {(source, s): entry}}; weak
-        # keys, so retired pipelines release their fields with them
-        self._resident_fields = weakref.WeakKeyDictionary()
         # 'auto': when the scene's counting pass engaged the overlay path's
         # crop-first two-stage split (pipeline.crop_compact_k: wide or
         # long-range scenes where most points fall outside the per-frame
@@ -940,22 +955,12 @@ class MapEvaluator:
         # surface with the default 'nearest' assignment; the 'dilate'
         # assignment stays device-only.
         self.backend = backend
+        # pipeline -> {"bytes": int, "chunks": {(source, s): entry}}: the GT
+        # fields whole-scene device evaluations keep on the device (_retain);
+        # weak keys, so retired pipelines release their fields with them
+        self._resident_fields = weakref.WeakKeyDictionary()
         # evaluate_scene_batch_sharded's steps, keyed by the mesh's layout
         self._sharded_steps = {}
-
-    def _chunk_has_gt(self, pipeline, idxs):
-        """Any lane_ins PNG present for any (frame, camera) in this chunk:
-        the same existence gate instance_loader applies per mask."""
-        scene = pipeline.scene
-        for idx in idxs:
-            if idx is None:
-                continue
-            for cam in scene.camera_list:
-                ms = scene.sync_ms[cam][idx]
-                if os.path.exists(os.path.join(
-                        scene.clip_path, f"lane_ins_{cam}", f"{ms}.png")):
-                    return True
-        return False
 
     def instance_loader(self, pipeline, camera, image_idx):
         """Load and nearest-remap a `lane_ins_{camera}` instance-id PNG to
@@ -995,97 +1000,6 @@ class MapEvaluator:
         ids = self.instance_loader(pipeline, camera, image_idx)
         return None if ids is None else ids > 0
 
-    def _iter_chunk_projections(self, pipeline, source, frames):
-        """Chunked projection shared by every scene-level metric: yields
-        (image_idxs, vu [K, C, P', 2], keep [K, C, P'], sel) per chunk,
-        where image_idxs[kk] is the frame index for chunk row kk, or None
-        for rows that are invalid frames / not in the requested `frames`
-        set.  Memory stays bounded at pipeline.chunk frames.  The device
-        backend yields tensors on the pipeline's device, the host backend
-        NumPy arrays.
-
-        P' is the full point axis P with sel=None, or, when compact='auto'
-        engaged the crop-first compaction (_project_compact_chunk_eval),
-        the k1 crop-survivor count with sel a [K, k1] int32 gather index
-        into the original point axis (padding rows carry keep False).  The
-        kept-point set is identical either way."""
-        from cama_tpu_torch.pipeline import (
-            _host_project_chunk,
-            _host_project_compact_chunk,
-        )
-
-        with self.timers.phase("eval_layout"):
-            fm, A, B, fv, F = pipeline._chunked_AB(source)
-            k1 = None
-            if self.backend == "device":
-                st = pipeline.scene_tensors(source)
-                if self.compact == "auto":
-                    k1 = pipeline.crop_compact_k(source)
-        h, w = pipeline.scene.output_size
-        lo, hi = pipeline._crop_lo, pipeline._crop_hi
-        pending = None if frames is None else set(frames)
-        for s in range(0, len(fv), pipeline.chunk):
-            if pending is not None and not pending:
-                return  # all requested frames served
-            sl = slice(s, s + pipeline.chunk)
-            idxs = []
-            for k in range(s, min(s + pipeline.chunk, len(fv))):
-                if k >= F or not fm.frame_valid[k]:
-                    idxs.append(None)
-                    continue
-                image_idx = int(fm.frame_indices[k])
-                if frames is not None and image_idx not in frames:
-                    idxs.append(None)
-                    continue
-                idxs.append(image_idx)
-            if pending is not None:
-                # skip whole chunks with no requested frame before paying
-                # the projection for them (quick-look reports on long clips)
-                if not any(i is not None for i in idxs):
-                    continue
-                pending.difference_update(i for i in idxs if i is not None)
-            if self.backend == "host":
-                # skip GT-less chunks before the synchronous f64 projection:
-                # absent masks are routine, and this einsum is real blocking
-                # host work whose output _chunk_gt would discard
-                if not self._chunk_has_gt(pipeline, idxs):
-                    continue
-                fp = pipeline.scene.flat[source]
-                with self.timers.phase("eval_host"):
-                    if self.compact == "auto":
-                        # unconditional on host: padding is local to the
-                        # chunk, and wide scenes cut the f64 per-point work
-                        # by the crop ratio
-                        vu_c, keep_c, sel_c = _host_project_compact_chunk(
-                            fp.points, fp.valid, A[sl], B[sl], fv[sl], w, h,
-                            lo, hi)
-                    else:
-                        vu_c, keep_c = _host_project_chunk(
-                            fp.points, fp.valid, A[sl], B[sl], fv[sl], w, h,
-                            lo, hi)
-                        sel_c = None
-            elif k1 is not None:
-                vu_c, keep_c, sel_c = _project_compact_chunk_eval(
-                    st.points, st.valid, st.A[sl], st.B[sl],
-                    st.frame_valid[sl], w, h, lo, hi, k1)
-            else:
-                vu_c, keep_c = project_frames(
-                    st.points, st.valid, st.A[sl], st.B[sl],
-                    st.frame_valid[sl], w, h, lo, hi)
-                sel_c = None
-            idxs += [None] * (vu_c.shape[0] - len(idxs))
-            yield idxs, vu_c, keep_c, sel_c
-
-    def _iter_frame_projections(self, pipeline, source, frames):
-        """Per-frame adapter over _iter_chunk_projections: yields
-        (image_idx, vu [C, P', 2], keep [C, P']) for each valid frame (P'
-        may be the compacted k1 axis; kept-point set identical)."""
-        for idxs, vu_c, keep_c, _sel in self._iter_chunk_projections(
-                pipeline, source, frames):
-            for kk, image_idx in enumerate(idxs):
-                if image_idx is not None:
-                    yield image_idx, vu_c[kk], keep_c[kk]
-
     def _camera_ids(self, pipeline, image_idx):
         """Instance-id images for every camera (GT store views), or None if
         any is missing."""
@@ -1097,18 +1011,13 @@ class MapEvaluator:
             ids.append(m)
         return ids
 
-    def _load_all_cameras(self, pipeline, image_idx):
-        """Instance-id images for every camera stacked [C, H, W], or None if
-        any is missing."""
-        ids = self._camera_ids(pipeline, image_idx)
-        return None if ids is None else np.stack(ids)
-
-    def _chunk_gt(self, pipeline, idxs):
-        """GT instance-id stacks for one projection chunk.
+    def _chunk_gt(self, pipes, idxs):
+        """GT instance-id stack of one chunk, whose row kk is frame idxs[kk]
+        (None: no frame) of the pipeline pipes[kk].
 
         Returns (ids_b [K, C, H, W] uint16, zeros for rows without GT;
         fv [K] float32 row validity; evaluated (row, frame index) list), or
-        (None, None, []) when no row in the chunk has GT masks (the chunk's
+        (None, fv, []) when no row in the chunk has GT masks (the chunk's
         metric work is skipped entirely).  uint16 holds any id cv2 can read
         from a lane_ins PNG (8- or 16-bit).  Each camera's image is copied
         once, straight into its row; for a device evaluator on the card the
@@ -1117,17 +1026,16 @@ class MapEvaluator:
         ids_b = None
         fv = np.zeros((len(idxs),), np.float32)
         evaluated = []
-        for kk, image_idx in enumerate(idxs):
+        for kk, (pipe, image_idx) in enumerate(zip(pipes, idxs)):
             if image_idx is None:
                 continue
-            ids = self._camera_ids(pipeline, image_idx)
+            ids = self._camera_ids(pipe, image_idx)
             if ids is None:
                 continue
             if ids_b is None:
                 ids_b = _id_stack(
                     (len(idxs), len(ids)) + ids[0].shape,
-                    self.backend == "device"
-                    and pipeline.device.type == "cuda")
+                    self.backend == "device" and pipe.device.type == "cuda")
             for c, m in enumerate(ids):
                 ids_b[kk, c] = m
             fv[kk] = 1.0
@@ -1136,219 +1044,330 @@ class MapEvaluator:
             ids_b[fv == 0] = 0  # the stack starts uninitialised
         return ids_b, fv, evaluated
 
-    # resident-field device memory budget per evaluator: beyond it, later
-    # chunks still run the build step but their fields are not retained
-    # (the default keeps long scenes from crowding out the overlay
-    # pipeline)
-    RESIDENT_BUDGET_MB = float(os.environ.get("CAMA_EVAL_RESIDENT_MB", 2048))
-
     def _chunk_layout(self, pipeline, source):
-        """Chunk row layout for a full-scene pass: yields (s, idxs) where
-        idxs[kk] is the frame index for row kk or None (invalid frame /
-        padding), the same layout _iter_chunk_projections derives."""
-        fm, A, B, fv, F = pipeline._chunked_AB(source)
-        for s in range(0, len(fv), pipeline.chunk):
-            idxs = []
-            for k in range(s, min(s + pipeline.chunk, len(fv))):
-                if k >= F or not fm.frame_valid[k]:
-                    idxs.append(None)
-                else:
-                    idxs.append(int(fm.frame_indices[k]))
-            yield s, idxs
+        """Chunk row layout: yields (s, idxs) for the chunk that starts at
+        frame s, idxs[kk] the frame index of row kk or None (an invalid
+        frame or padding).  A MultiScenePipeline's chunks hold `chunk` rows
+        of each member carrying `source`, one member after another."""
+        from cama_tpu_torch.pipeline import MultiScenePipeline
 
-    def _eval_scene_resident(self, pipeline, source, frames, instances,
-                             assignment):
-        """Resident-field evaluation (the device steady state).
+        if isinstance(pipeline, MultiScenePipeline):
+            fms, Fs, _A, _B, fv = pipeline._stacked(source)
+            n = int(fv.shape[1])
+        else:
+            fm, _A, _B, fv, F = pipeline._chunked_AB(source)
+            fms, Fs, n = [fm], [F], len(fv)
+        K = pipeline.chunk
+        for s in range(0, n, K):
+            yield s, [int(fm.frame_indices[k])
+                      if k < F and fm.frame_valid[k] else None
+                      for fm, F in zip(fms, Fs) for k in range(s, s + K)]
 
-        Per chunk, the scene points are projected and GT-derived fields
-        that live on the device are sampled: a capped distance field (uint8
-        chebyshev count / f32 squared-EDT) for SRE and precision, the
-        bitpacked GT mask for recall, and, when instances are requested,
-        the per-pixel nearest-instance vote field.  The fields are pure
-        functions of the cached GT masks and the evaluator's caps, built
-        once per (pipeline, chunk) by _eval_chunk_build and keyed by the GT
-        store's content key, so regenerated masks invalidate them exactly
-        when they invalidate the store.  A warm evaluation therefore
-        uploads nothing and runs no distance transform of the GT.
+    def _stack_scenes(self, msp, pipes, source):
+        """A fleet's geometry: (points [S, P, 3], valid [S, P], A, B: the
+        members' points padded with invalid points to a common P and their
+        stacked frame matrices, on the device; k1).  k1 compacts to the
+        members' largest crop-survivor sizing when every member's counting
+        pass engaged the split (mixed or unsized fleets stay full-P), the
+        already-known-only rule of the solo path (pipeline.crop_compact_k
+        never runs the counting pass)."""
+        tens = [p.scene_tensors(source) for p in pipes]
+        P = max(int(t.points.shape[0]) for t in tens)
+        points = torch.stack([torch.nn.functional.pad(
+            t.points, (0, 0, 0, P - t.points.shape[0])) for t in tens])
+        valid = torch.stack([torch.nn.functional.pad(
+            t.valid, (0, P - t.valid.shape[0])) for t in tens])
+        _fms, _Fs, A, B, _fv = msp._stacked(source)
+        k1 = None
+        if self.compact == "auto":
+            ks = [p.crop_compact_k(source) for p in pipes]
+            if all(k is not None for k in ks) and max(ks) * 2 <= P:
+                k1 = max(ks)
+        return points, valid, A, B, k1
 
-        Returns the result dict, or None when the path doesn't apply
-        (host backend, frames filter, resident='off', or no GT store to key
-        staleness by)."""
-        if (self.backend != "device" or frames is not None
-                or self.resident == "off"):
-            return None
+    def _evaluate(self, pipeline, source, frames, metrics, votes,
+                  assignment):
+        """The one chunk loop: binary metrics when `metrics`, instance votes
+        when `votes`, over the chunks of _chunk_layout (the rows of `frames`
+        alone, when given).
+
+        pipeline: a ClipPipeline, or a MultiScenePipeline (whose members
+        carrying `source` are evaluated side by side).  Per chunk,
+        _chunk_gt loads the rows' GT ids (eval_gt_load) and a chunk without
+        any is skipped.  Then the step (eval_dispatch): device_ids sends
+        the ids to the card in one copy, the GT fields are derived there
+        (_gt_fields: _dist_field for the metrics, _vote_field for the
+        votes) and sampled at the projected points, by _eval_core for one
+        scene, by _sample_fields per row for a fleet.  Partials come back
+        in one _fetch_partials after the last chunk (eval_fetch), votes
+        through _drain_votes every MAX_PENDING_CHUNKS chunks.  The host
+        backend runs the same loop on NumPy/SciPy (eval_host).
+
+        A whole scene on the device keeps each chunk's fields under the GT
+        store's content key, so regenerated masks drop them with the store
+        (_resident_fields, RESIDENT_BUDGET_MB), and a later pass that needs
+        no other field serves them (_eval_chunk_serve) without loading or
+        sending any GT.
+
+        Returns one result dict per evaluated scene."""
+        from cama_tpu_torch.pipeline import (
+            MultiScenePipeline,
+            _host_project_chunk,
+            _host_project_compact_chunk,
+        )
+
+        host = self.backend == "host"
+        if votes and host and assignment != "nearest":
+            # here, not in the loop: there it would fire only on a chunk
+            # with GT, and a GT-less clip would return empty results
+            raise ValueError("backend='host' supports assignment='nearest'")
+        fleet = isinstance(pipeline, MultiScenePipeline)
+        pipes = ([pipeline.pipelines[i] for i in pipeline.members(source)]
+                 if fleet else [pipeline])
+        device, K = pipeline.device, pipeline.chunk
+        caps = (self.max_radius, self.tolerance, self.distance)
         with self.timers.phase("eval_gt_refresh"):
-            cache = pipeline.gt_mask_cache()
-        if cache is None:
-            return None  # no content key to detect regenerated masks by
-        gt_key = cache.key
+            for p in pipes:
+                p.refresh_gt_cache()  # pick up regenerated GT masks
+            gt_store = (None if fleet or host or frames is not None
+                        else pipeline.gt_mask_cache())
+        store = (None if gt_store is None else self._resident_fields
+                 .setdefault(pipeline, {"bytes": 0, "chunks": {}}))
         with self.timers.phase("eval_layout"):
-            st = pipeline.scene_tensors(source)
-            k1 = (pipeline.crop_compact_k(source) if self.compact == "auto"
-                  else None)
             layout = list(self._chunk_layout(pipeline, source))
-        device = pipeline.device
-        h, w = pipeline.scene.output_size
-        lo, hi = pipeline._crop_lo, pipeline._crop_hi
-        store = self._resident_fields.get(pipeline)
-        if store is None:
-            store = self._resident_fields[pipeline] = {"bytes": 0,
-                                                       "chunks": {}}
-        budget = int(self.RESIDENT_BUDGET_MB * 1e6)
-
+            h, w = pipes[0].scene.output_size
+            lo, hi = pipes[0]._crop_lo, pipes[0]._crop_hi
+            if host:
+                _fm, A, B, fv_all, _F = pipeline._chunked_AB(source)
+                points, valid = (pipeline.scene.flat[source].points,
+                                 pipeline.scene.flat[source].valid)
+            elif fleet:
+                points, valid, A, B, k1 = self._stack_scenes(pipeline, pipes,
+                                                             source)
+            else:
+                st = pipeline.scene_tensors(source)
+                points, valid, A, B = st.points, st.valid, st.A, st.B
+                k1 = (pipeline.crop_compact_k(source)
+                      if self.compact == "auto" else None)
+        if frames is not None:
+            wanted = set(frames)
+            layout = [(s, [i if i in wanted else None for i in idxs])
+                      for s, idxs in layout]
+        row_pipes = [p for p in pipes for _ in range(K)]
+        if votes:  # each scene's point instance ids, padded to the fleet's P
+            P = max(len(p.scene.flat[source].inst) for p in pipes)
+            insts = [np.pad(np.asarray(p.scene.flat[source].inst),
+                            (0, P - len(p.scene.flat[source].inst)))
+                     for p in pipes]
+        need = ((("dist", "gtp") if metrics else ())
+                + ((("votes", assignment),) if votes else ()))
         partials, pending = [], []
-        sink = {"mi": [], "gi": []}
-        visible = set()
-        n_evaluated = 0
+        sinks = [{"mi": [], "gi": []} for _ in pipes]
+        visible = [set() for _ in pipes]
+        n_evaluated = [0] * len(pipes)
         for s, idxs in layout:
+            sl = slice(s, s + K)
             key = (source, s)
-            entry = store["chunks"].get(key)
-            if entry is not None and entry["gt_key"] != gt_key:
-                if not entry.get("empty"):
-                    store["bytes"] -= entry["bytes"]
-                entry = None  # masks regenerated: rebuild
-            if (entry is not None and not entry.get("empty") and instances
-                    and assignment not in entry["votes"]):
-                store["bytes"] -= entry["bytes"]
-                entry = None  # upgrade: rebuild with the vote field
-            if entry is not None and entry.get("empty"):
-                continue
-            sl = slice(s, s + pipeline.chunk)
+            entry = (None if store is None
+                     else self._kept(store, key, gt_store.key, need))
             if entry is None:
                 with self.timers.phase("eval_gt_load"):
-                    ids_b, fvv, evaluated = self._chunk_gt(pipeline, idxs)
+                    ids_b, fv, evaluated = self._chunk_gt(row_pipes, idxs)
                 if ids_b is None:
-                    store["chunks"][key] = {"gt_key": gt_key, "empty": True}
+                    if store is not None:  # kept: the chunk has no GT
+                        store["chunks"][key] = {"gt_key": gt_store.key,
+                                                "fields": None, "bytes": 0}
                     continue
-                vis = (np.unique(ids_b[ids_b > 0]) if instances
-                       else np.empty(0, np.int64))
-                with self.timers.phase("eval_dispatch"):
-                    fvb = _upload(fvv > 0, device)
-                    p, votes, keep, sel, dist_fd, gtp, vote_fd = \
-                        _eval_chunk_build(
-                            st.points, st.valid, st.A[sl], st.B[sl], fvb,
-                            device_ids(ids_b, device, self.timers), w, h,
-                            lo, hi, k1, self.max_radius, self.tolerance,
-                            self.distance, assignment, instances)
-                nbytes = sum(t.numel() * t.element_size()
-                             for t in (dist_fd, gtp, vote_fd)
-                             if t is not None)
-                if store["bytes"] + nbytes <= budget:
-                    entry = {
-                        "gt_key": gt_key, "fvb": fvb, "evaluated": evaluated,
-                        "visible": vis, "bytes": nbytes,
-                        "dist": dist_fd, "gtp": gtp,
-                        "votes": {assignment: vote_fd} if instances else {},
-                    }
-                    store["chunks"][key] = entry
-                    store["bytes"] += nbytes
-                else:
-                    store["chunks"].pop(key, None)  # over budget: don't keep
+                vis = ([np.unique(b[b > 0]) for b in np.split(ids_b,
+                                                              len(pipes))]
+                       if votes else None)
+            elif entry["fields"] is None:
+                continue
             else:
                 evaluated, vis = entry["evaluated"], entry["visible"]
-                with self.timers.phase("eval_dispatch"):
-                    p, votes, keep, sel = _eval_chunk_serve(
-                        st.points, st.valid, st.A[sl], st.B[sl],
-                        entry["fvb"], entry["dist"], entry["gtp"],
-                        entry["votes"].get(assignment) if instances else None,
-                        w, h, lo, hi, k1, self.max_radius, self.tolerance,
-                        self.distance)
-            partials.append(p)
-            n_evaluated += len(evaluated)
-            if instances:
-                visible.update(int(i) for i in vis)
-                self._push_votes(pipeline, source, pending, sink,
-                                 (votes, keep, sel, evaluated))
-        self._drain_votes(pipeline, source, pending, sink)
-        with self.timers.phase("eval_fetch"):
-            out = reduce_metrics(_fetch_partials(partials))
-        if instances:
-            assoc = self._associate(sink, visible)
-            out.update(assoc if assoc is not None else self._EMPTY_ASSOCIATION)
-        out["frames_evaluated"] = n_evaluated
-        return out
-
-    def evaluate_scene(self, pipeline, source="cama", frames=None):
-        """Run the metric over all valid frames that have GT masks.
-
-        Projection and metrics run chunk by chunk (pipeline.chunk frames at
-        a time) so memory stays bounded for long scenes; chunk partials are
-        plain sums, fetched once after the last chunk is queued, so the
-        host's GT loading overlaps the device's work."""
-        with self.timers.phase("eval_gt_refresh"):
-            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
-        r = self._eval_scene_resident(pipeline, source, frames,
-                                      instances=False, assignment="nearest")
-        if r is not None:
-            return r
-        device = pipeline.device
-        partials = []
-        n_evaluated = 0
-        for idxs, vu_c, keep_c, _sel in self._iter_chunk_projections(
-                pipeline, source, frames):
-            with self.timers.phase("eval_gt_load"):
-                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
-            if ids_b is None:
-                continue
-            if self.backend == "host":
+            if host:
                 with self.timers.phase("eval_host"):
-                    self._host_fold_metrics(partials, ids_b, vu_c, keep_c,
-                                            evaluated)
+                    # crop-first when compact='auto', unconditionally:
+                    # padding is local to the chunk, and wide scenes cut the
+                    # f64 per-point work by the crop ratio
+                    if self.compact == "auto":
+                        vu, keep, sel = _host_project_compact_chunk(
+                            points, valid, A[sl], B[sl], fv_all[sl], w, h,
+                            lo, hi)
+                    else:
+                        vu, keep = _host_project_chunk(
+                            points, valid, A[sl], B[sl], fv_all[sl], w, h,
+                            lo, hi)
+                        sel = None
+                    for kk, _image_idx in evaluated:
+                        if metrics:
+                            partials.append((frame_metrics_host(
+                                ids_b[kk] > 0, vu[kk], keep[kk], *caps),
+                                None))
+                        if votes:
+                            _fold_votes(sinks[0], insts[0] if sel is None
+                                        else insts[0][sel[kk]],
+                                        instance_votes_host(
+                                            ids_b[kk], vu[kk], keep[kk],
+                                            self.tolerance), keep[kk])
             else:
                 with self.timers.phase("eval_dispatch"):
-                    partials.append(frame_metrics_chunk_packed(
-                        _upload(np.packbits(ids_b > 0, axis=-1), device),
-                        vu_c, keep_c, _upload(fv, device), ids_b.shape[-1],
-                        self.max_radius, self.tolerance, self.distance,
-                    ))
-            n_evaluated += len(evaluated)
-        with self.timers.phase("eval_host" if self.backend == "host"
-                               else "eval_fetch"):
-            out = reduce_metrics(partials if self.backend == "host"
-                                 else _fetch_partials(partials))
-        out["frames_evaluated"] = n_evaluated
-        return out
+                    if entry is not None:
+                        got = {n: entry["fields"][n] for n in need}
+                        p, v, keep, sel = _eval_chunk_serve(
+                            points, valid, A[sl], B[sl], entry["fvb"],
+                            got.get("dist"), got.get("gtp"),
+                            got.get(("votes", assignment)), w, h, lo, hi,
+                            k1, *caps)
+                    elif fleet:
+                        fvb = _upload(fv > 0, device).reshape(-1, K)
+                        gt_mask, dist_fd, vote_fd = _gt_fields(
+                            device_ids(ids_b, device, self.timers), *caps,
+                            assignment, metrics, votes)
+                        if k1 is not None:
+                            vu, keep, sel = _project_compact_scenes(
+                                points, valid, A[:, sl], B[:, sl], fvb, w, h,
+                                lo, hi, k1)
+                            sel = sel.flatten(0, 1)
+                        else:
+                            vu, keep = _project_scenes(
+                                points, valid, A[:, sl], B[:, sl], fvb, w, h,
+                                lo, hi)
+                            sel = None
+                        vu, keep = vu.flatten(0, 1), keep.flatten(0, 1)
+                        p, v = _sample_fields(gt_mask, dist_fd, vote_fd, vu,
+                                              keep, *caps)
+                    else:
+                        fvb = _upload(fv > 0, device)
+                        p, v, keep, sel, *fields = _eval_chunk_build(
+                            points, valid, A[sl], B[sl], fvb,
+                            device_ids(ids_b, device, self.timers), w, h,
+                            lo, hi, k1, *caps, assignment, votes, metrics)
+                if store is not None and entry is None:
+                    self._retain(store, key, gt_store.key, fvb, evaluated,
+                                 vis, dict(zip(("dist", "gtp",
+                                                ("votes", assignment)),
+                                               fields)))
+                if metrics:
+                    partials.append((p, evaluated if fleet else None))
+                if votes:
+                    self._push_votes(pending, (v, keep, sel, [
+                        (kk, insts[kk // K], sinks[kk // K])
+                        for kk, _image_idx in evaluated]), device)
+            for kk, _image_idx in evaluated:
+                n_evaluated[kk // K] += 1
+            for m, ids in enumerate(vis or ()):
+                visible[m].update(ids.tolist())
+        self._drain_votes(pending, device)
+        with self.timers.phase("eval_host" if host else "eval_fetch"):
+            fetched = [p for p, _rows in partials]
+            if not host:
+                fetched = _fetch_partials(fetched)
+            per_scene = [[] for _ in pipes]
+            for f, (_p, rows) in zip(fetched, partials):
+                if rows is None:  # one scene's chunk sum, or a host row
+                    per_scene[0].append(f)
+                for kk, _image_idx in rows or ():
+                    per_scene[kk // K].append(
+                        {k2: v[kk] for k2, v in f.items()})
+            outs = [reduce_metrics(rows) if metrics else {}
+                    for rows in per_scene]
+        for out, sink, vis_m, n in zip(outs, sinks, visible, n_evaluated):
+            if votes:
+                assoc = self._associate(sink, vis_m)
+                out.update(assoc if assoc is not None
+                           else self._EMPTY_ASSOCIATION)
+            out["frames_evaluated"] = n
+        return outs
 
-    # device-vote backlog bound (chunks): enough in flight to overlap host GT
-    # loading with device work, small enough that vote buffers stay O(1) in
-    # scene length (a [K, C, P] uint16 + bool pair per chunk can be tens of
-    # MB at production point counts)
-    MAX_PENDING_CHUNKS = 4
+    @staticmethod
+    def _kept(store, key, gt_key, need):
+        """The kept entry of chunk `key` when it serves a pass that needs
+        the fields named in `need`: one that holds them all, or one kept
+        for a chunk with no GT (fields None); else None.  An entry of
+        regenerated masks is dropped."""
+        entry = store["chunks"].get(key)
+        if entry is not None and entry["gt_key"] != gt_key:
+            store["bytes"] -= store["chunks"].pop(key)["bytes"]
+            return None
+        if (entry is None or entry["fields"] is None
+                or all(n in entry["fields"] for n in need)):
+            return entry
+        return None
 
-    def _drain_votes(self, pipeline, source, pending, sink):
-        """Fetch the queued chunks' device votes and keep masks in one wave
-        of pinned copies, filter per evaluated row, fold into
-        sink['mi'/'gi'].  pending: list of (votes [K, C, P'], keep
-        [K, C, P'], sel [K, P'] or None, evaluated); with a compacted
-        projection, sel maps each row's point axis back to scene-flat
-        instance ids."""
+    def _retain(self, store, key, gt_key, fvb, evaluated, vis, fields):
+        """Keep a built chunk's fields (those not None) with any an earlier
+        pass kept for it, unless that takes the store past
+        RESIDENT_BUDGET_MB: then the chunk keeps none."""
+        old = store["chunks"].pop(key, None) or {"fields": {}, "bytes": 0,
+                                                 "visible": None}
+        store["bytes"] -= old["bytes"]
+        fields = {**old["fields"],
+                  **{n: t for n, t in fields.items() if t is not None}}
+        nbytes = sum(t.numel() * t.element_size() for t in fields.values())
+        if store["bytes"] + nbytes <= self.RESIDENT_BUDGET_MB * 1e6:
+            store["chunks"][key] = {
+                "gt_key": gt_key, "fvb": fvb, "evaluated": evaluated,
+                "visible": old["visible"] if vis is None else vis,
+                "fields": fields, "bytes": nbytes}
+            store["bytes"] += nbytes
+
+    def evaluate_scene(self, pipeline, source="cama", frames=None):
+        """SRE, precision, recall and F1 over all valid frames that have GT
+        masks (those in `frames` alone, when given), chunk by chunk
+        (pipeline.chunk frames at a time, so memory stays bounded for long
+        scenes; _evaluate)."""
+        return self._evaluate(pipeline, source, frames, True, False,
+                              "nearest")[0]
+
+    def evaluate_scene_instances(self, pipeline, source="cama", frames=None,
+                                 assignment="nearest"):
+        """Instance-level association quality over all valid frames with GT
+        instance masks: each map instance's projected points vote on a GT
+        instance id (for the Euclidean-nearest instance within tolerance by
+        default, see instance_votes_chunk); reports precision/recall/purity
+        (see instance_association)."""
+        return self._evaluate(pipeline, source, frames, False, True,
+                              assignment)[0]
+
+    def evaluate_scene_all(self, pipeline, source="cama", frames=None,
+                           assignment="nearest"):
+        """Scene metrics and instance association in one pass: the GT is
+        read and sent once a chunk, the projections run once a chunk, and
+        both metric families sample fields of the same ids.  The result
+        dict is the union of the two single-metric methods' outputs."""
+        return self._evaluate(pipeline, source, frames, True, True,
+                              assignment)[0]
+
+    def _drain_votes(self, pending, device):
+        """Fetch the queued chunks' device votes, keep masks and selections
+        in one wave of pinned copies and fold each evaluated row's vote
+        pairs into its scene's sink.  pending: list of (votes [R, C, P'],
+        keep [R, C, P'], sel [R, P'] or None, rows), rows a list of (row,
+        its scene's point instance ids, its scene's sink); with a compacted
+        projection, sel maps each row's point axis back to the scene's."""
         if not pending:
             return
-        point_inst = np.asarray(pipeline.scene.flat[source].inst)
         with self.timers.phase("eval_fetch"):
             hosts, done = _fetch_optional(
-                [t for v, k, s, _ in pending for t in (v, k, s)],
-                pipeline.device.type == "cuda")
+                [t for item in pending for t in item[:3]],
+                device.type == "cuda")
             if done is not None:
                 done.synchronize()
             fetched = [None if t is None else t.numpy() for t in hosts]
-        for i, (_, _, _, evaluated) in enumerate(pending):
+        for i, (_, _, _, rows) in enumerate(pending):
             g_at, keep_np, sel_np = fetched[3 * i:3 * i + 3]
-            for kk, _image_idx in evaluated:
-                k_row = keep_np[kk]
-                inst_row = (point_inst if sel_np is None
-                            else point_inst[sel_np[kk]])
-                mi = np.broadcast_to(inst_row[None, :], k_row.shape)[k_row]
-                sink["mi"].append(mi.astype(np.int64))
-                sink["gi"].append(g_at[kk][k_row].astype(np.int64))
+            for kk, inst, sink in rows:
+                _fold_votes(sink, inst if sel_np is None else inst[sel_np[kk]],
+                            g_at[kk], keep_np[kk])
         pending.clear()
 
-    def _push_votes(self, pipeline, source, pending, sink, item):
+    def _push_votes(self, pending, item, device):
         """Queue one chunk's device votes, draining when the backlog bound
         is hit (keeps the device busy without unbounded buffers)."""
         pending.append(item)
         if len(pending) >= self.MAX_PENDING_CHUNKS:
-            self._drain_votes(pipeline, source, pending, sink)
+            self._drain_votes(pending, device)
 
     @staticmethod
     def _associate(sink, visible):
@@ -1357,139 +1376,6 @@ class MapEvaluator:
         return instance_association(np.concatenate(sink["mi"]),
                                     np.concatenate(sink["gi"]),
                                     gt_ids_visible=visible)
-
-    _EMPTY_ASSOCIATION = {"instance_precision": 0.0, "instance_recall": 0.0,
-                          "mean_purity": 0.0, "n_map_instances": 0,
-                          "n_gt_instances": 0}
-
-    def _check_assignment(self, assignment):
-        """Validate at method entry: inside the loop it would only fire when
-        a GT-bearing chunk exists, and an unsupported assignment on a
-        GT-less clip would return empty results silently."""
-        if self.backend == "host" and assignment != "nearest":
-            raise ValueError("backend='host' supports assignment='nearest'")
-
-    def _host_fold_metrics(self, partials, ids_b, vu_c, keep_c, evaluated):
-        """Host-backend per-row metric fold shared by evaluate_scene and
-        evaluate_scene_all."""
-        for kk, _image_idx in evaluated:
-            partials.append(frame_metrics_host(
-                ids_b[kk] > 0, vu_c[kk], keep_c[kk],
-                self.max_radius, self.tolerance, self.distance))
-
-    def _host_fold_votes(self, pipeline, source, sink, ids_b, vu_c, keep_c,
-                         evaluated, sel_c=None):
-        """Host-backend voting for one chunk's evaluated rows, folded
-        straight into the association sink.  sel_c maps a compacted chunk's
-        point axis back to scene-flat instance ids (None for full-P
-        projections)."""
-        point_inst = np.asarray(pipeline.scene.flat[source].inst)
-        for kk, _image_idx in evaluated:
-            votes_row = instance_votes_host(ids_b[kk], vu_c[kk], keep_c[kk],
-                                            self.tolerance)
-            k_row = np.asarray(keep_c[kk], bool)
-            inst = (point_inst if sel_c is None
-                    else point_inst[np.asarray(sel_c[kk])])
-            mi = np.broadcast_to(inst[None, :], k_row.shape)[k_row]
-            sink["mi"].append(mi.astype(np.int64))
-            sink["gi"].append(votes_row[k_row].astype(np.int64))
-
-    def evaluate_scene_instances(self, pipeline, source="cama", frames=None,
-                                 assignment="nearest"):
-        """Instance-level association quality over all valid frames with GT
-        instance masks: each map instance's projected points vote on a GT
-        instance id (for the Euclidean-nearest instance within tolerance by
-        default, see instance_votes_chunk); reports precision/recall/purity
-        (see instance_association).  Votes are fetched in batched transfers
-        every MAX_PENDING_CHUNKS chunks."""
-        self._check_assignment(assignment)
-        with self.timers.phase("eval_gt_refresh"):
-            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
-        device = pipeline.device
-        pending = []
-        sink = {"mi": [], "gi": []}
-        visible = set()
-        n_evaluated = 0
-        for idxs, vu_c, keep_c, sel_c in self._iter_chunk_projections(
-                pipeline, source, frames):
-            with self.timers.phase("eval_gt_load"):
-                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
-            if ids_b is None:
-                continue
-            if self.backend == "host":
-                with self.timers.phase("eval_host"):
-                    self._host_fold_votes(pipeline, source, sink, ids_b,
-                                          vu_c, keep_c, evaluated, sel_c)
-            else:
-                with self.timers.phase("eval_dispatch"):
-                    votes = instance_votes_chunk(
-                        device_ids(ids_b, device, self.timers), vu_c, keep_c,
-                        self.tolerance, assignment)
-                    self._push_votes(pipeline, source, pending, sink,
-                                     (votes, keep_c, sel_c, evaluated))
-            visible.update(np.unique(ids_b[ids_b > 0]).tolist())
-            n_evaluated += len(evaluated)
-        self._drain_votes(pipeline, source, pending, sink)
-        out = self._associate(sink, visible)
-        if out is None:
-            return dict(self._EMPTY_ASSOCIATION, frames_evaluated=0)
-        out["frames_evaluated"] = n_evaluated
-        return out
-
-    def evaluate_scene_all(self, pipeline, source="cama", frames=None,
-                           assignment="nearest"):
-        """Scene metrics and instance association in one pass: the GT
-        instance PNGs are read and remapped once, the projections run once
-        per chunk, and both metric families share one upload of the ids
-        (_metrics_and_votes_chunk).  Vote buffers come back in bounded
-        batched transfers (MAX_PENDING_CHUNKS), scalar partials in one
-        trailing copy.  The result dict is the union of the two
-        single-metric methods' outputs."""
-        self._check_assignment(assignment)
-        with self.timers.phase("eval_gt_refresh"):
-            pipeline.refresh_gt_cache()  # pick up regenerated GT masks
-        r = self._eval_scene_resident(pipeline, source, frames,
-                                      instances=True, assignment=assignment)
-        if r is not None:
-            return r
-        device = pipeline.device
-        partials, pending = [], []
-        sink = {"mi": [], "gi": []}
-        visible = set()
-        n_evaluated = 0
-        for idxs, vu_c, keep_c, sel_c in self._iter_chunk_projections(
-                pipeline, source, frames):
-            with self.timers.phase("eval_gt_load"):
-                ids_b, fv, evaluated = self._chunk_gt(pipeline, idxs)
-            if ids_b is None:
-                continue
-            if self.backend == "host":
-                with self.timers.phase("eval_host"):
-                    self._host_fold_metrics(partials, ids_b, vu_c, keep_c,
-                                            evaluated)
-                    self._host_fold_votes(pipeline, source, sink, ids_b,
-                                          vu_c, keep_c, evaluated, sel_c)
-            else:
-                with self.timers.phase("eval_dispatch"):
-                    p, votes = _metrics_and_votes_chunk(
-                        device_ids(ids_b, device, self.timers), vu_c, keep_c,
-                        _upload(fv, device), self.max_radius, self.tolerance,
-                        self.distance, assignment,
-                    )
-                    partials.append(p)
-                    self._push_votes(pipeline, source, pending, sink,
-                                     (votes, keep_c, sel_c, evaluated))
-            visible.update(np.unique(ids_b[ids_b > 0]).tolist())
-            n_evaluated += len(evaluated)
-        self._drain_votes(pipeline, source, pending, sink)
-        with self.timers.phase("eval_host" if self.backend == "host"
-                               else "eval_fetch"):
-            out = reduce_metrics(partials if self.backend == "host"
-                                 else _fetch_partials(partials))
-        assoc = self._associate(sink, visible)
-        out.update(assoc if assoc is not None else self._EMPTY_ASSOCIATION)
-        out["frames_evaluated"] = n_evaluated
-        return out
 
     def evaluate_scene_batch(self, pipelines, source="cama", instances=False,
                              assignment="nearest"):
@@ -1530,152 +1416,11 @@ class MapEvaluator:
 
         msp = (pipelines if isinstance(pipelines, MultiScenePipeline)
                else MultiScenePipeline(pipelines, source=source))
-        # _stacked, not _source_state: the latter also runs the overlay
-        # counting pass per member, which the metric path never uses
-        members = msp.members(source)
-        fms, Fs, A, B, fv = msp._stacked(source)
-        pipes = [msp.pipelines[i] for i in members]
-        device = msp.device
-        on_card = device.type == "cuda"
-        with self.timers.phase("eval_gt_refresh"):
-            for p in pipes:
-                p.refresh_gt_cache()  # pick up regenerated GT masks
-        # the members' points, padded to a common P with invalid points
-        tens = [p.scene_tensors(source) for p in pipes]
-        P = max(int(t.points.shape[0]) for t in tens)
-        pts = torch.stack([torch.nn.functional.pad(
-            t.points, (0, 0, 0, P - t.points.shape[0])) for t in tens])
-        valid = torch.stack([torch.nn.functional.pad(
-            t.valid, (0, P - t.valid.shape[0])) for t in tens])
-        h, w = pipes[0].scene.output_size
-        lo, hi = pipes[0]._crop_lo, pipes[0]._crop_hi
-        S = len(pipes)
-        K = msp.chunk
-        Fp = int(fv.shape[1])
-        inst_pad = [np.pad(np.asarray(p.scene.flat[source].inst),
-                           (0, P - len(p.scene.flat[source].inst)))
-                    for p in pipes] if instances else None
-        # fleet-wide two-stage: compact to the members' largest
-        # crop-survivor sizing when every member's counting pass engaged the
-        # split (mixed or unsized fleets stay full-P), the same
-        # already-known-only rule as the solo path (pipeline.crop_compact_k
-        # never runs the counting pass)
-        k1 = None
-        if self.compact == "auto":
-            ks = [p.crop_compact_k(source) for p in pipes]
-            if ks and all(k is not None for k in ks):
-                k1 = max(ks)
-                if k1 * 2 > P:
-                    k1 = None
-
-        sums = [dict() for _ in range(S)]
-        counts = [0] * S
-        sinks = [{"mi": [], "gi": []} for _ in range(S)]
-        visible = [set() for _ in range(S)]
-        pending = []  # (rows [5, R], votes|None, keep_p|None, cidx|None,
-        #                p_dim, slots)
-
-        def drain():
-            if not pending:
-                return
-            with self.timers.phase("eval_fetch"):
-                hosts, done = _fetch_optional(
-                    [t for item in pending for t in item[:4]], on_card)
-                if done is not None:
-                    done.synchronize()
-                hosts = [None if t is None else t.numpy() for t in hosts]
-            for i, item in enumerate(pending):
-                rows, votes, keep_p, cidx = hosts[4 * i:4 * i + 4]
-                p_dim, slots = item[4], item[5]
-                keep_np = (None if keep_p is None else
-                           np.unpackbits(keep_p, axis=-1)[..., :p_dim]
-                           .astype(bool))
-                for r, (mi_s, kk) in enumerate(slots):
-                    for k2, v in zip(PARTIAL_KEYS, rows):
-                        sums[mi_s][k2] = sums[mi_s].get(k2, 0.0) + float(v[r])
-                    counts[mi_s] += 1
-                    if votes is not None:
-                        k_row = keep_np[r]
-                        m = inst_pad[mi_s]
-                        if cidx is not None:  # compacted: map back through
-                            m = m[cidx[r]]    # the row's selection indices
-                        sinks[mi_s]["mi"].append(np.broadcast_to(
-                            m[None, :], k_row.shape)[k_row].astype(np.int64))
-                        sinks[mi_s]["gi"].append(
-                            votes[r][k_row].astype(np.int64))
-            pending.clear()
-
-        for s in range(0, Fp, K):
-            sl = slice(s, s + K)
-            with self.timers.phase("eval_dispatch"):
-                if k1 is not None:
-                    vu, keep, cidx_c = _project_compact_scenes(
-                        pts, valid, A[:, sl], B[:, sl], fv[:, sl],
-                        w, h, lo, hi, k1)
-                else:
-                    vu, keep = _project_scenes(
-                        pts, valid, A[:, sl], B[:, sl], fv[:, sl],
-                        w, h, lo, hi)
-                    cidx_c = None
-            # rows with complete GT, across all scenes of this chunk
-            gt_rows, slots = [], []
-            with self.timers.phase("eval_gt_load"):
-                for mi_s, (fm, F) in enumerate(zip(fms, Fs)):
-                    for kk in range(min(K, Fp - s)):
-                        fidx = s + kk
-                        if fidx >= F or not fm.frame_valid[fidx]:
-                            continue
-                        ids = self._load_all_cameras(
-                            pipes[mi_s], int(fm.frame_indices[fidx]))
-                        if ids is None:
-                            continue
-                        gt_rows.append(np.asarray(ids, np.uint16))
-                        slots.append((mi_s, kk))
-            if not gt_rows:
-                continue
-            # pad the row batch to a multiple of the chunk
-            pad = (-len(gt_rows)) % K
-            ids_b = np.stack(gt_rows + [np.zeros_like(gt_rows[0])] * pad)
-            sel = np.asarray([mi_s * vu.shape[1] + kk for mi_s, kk in slots]
-                             + [0] * pad, np.int64)
-            with self.timers.phase("eval_dispatch"):
-                sel_d = _upload(sel, device)
-                vu_f = vu.flatten(0, 1)[sel_d]
-                keep_f = keep.flatten(0, 1)[sel_d]
-                rows = frame_metrics_rows_packed(
-                    _upload(np.packbits(ids_b > 0, axis=-1), device), vu_f,
-                    keep_f, w, self.max_radius, self.tolerance, self.distance)
-                rows = torch.stack([rows[k2] for k2 in PARTIAL_KEYS])
-                votes = keep_p = cidx_f = None
-                if instances:
-                    votes = instance_votes_chunk(
-                        device_ids(ids_b, device, self.timers), vu_f, keep_f,
-                        self.tolerance, assignment)
-                    # keep goes to the host bitpacked (an eighth of the
-                    # bytes); skipped when only the partials are needed
-                    keep_p = packbits(keep_f)
-                    if cidx_c is not None:  # per-row selection indices for
-                        cidx_f = cidx_c.flatten(0, 1)[sel_d]  # the inst map
-            if instances:
-                for (mi_s, _kk), ids in zip(slots, gt_rows):
-                    visible[mi_s].update(np.unique(ids[ids > 0]).tolist())
-            pending.append((rows, votes, keep_p, cidx_f,
-                            int(keep_f.shape[-1]), slots))
-            if len(pending) >= self.MAX_PENDING_CHUNKS:
-                drain()
-        drain()
-
+        outs = self._evaluate(msp, source, None, True, instances, assignment)
         results = [None] * len(msp.pipelines)
-        for mi_s, gi in enumerate(members):
-            if counts[mi_s] == 0:
-                continue
-            out = reduce_metrics([sums[mi_s]])
-            if instances:
-                assoc = self._associate(sinks[mi_s], visible[mi_s])
-                out.update(assoc if assoc is not None
-                           else self._EMPTY_ASSOCIATION)
-            out["frames_evaluated"] = counts[mi_s]
-            results[gi] = out
+        for gi, out in zip(msp.members(source), outs):
+            if out["frames_evaluated"]:
+                results[gi] = out
         return results
 
     def evaluate_scene_batch_sharded(self, pipelines, mesh, source="cama"):
@@ -1794,11 +1539,11 @@ class MapEvaluator:
                         fidx = s + r_lo + j
                         if fidx >= F or not fm.frame_valid[fidx]:
                             continue
-                        ids = self._load_all_cameras(
+                        ids = self._camera_ids(
                             pipes[s_lo + i], int(fm.frame_indices[fidx]))
                         if ids is None:
                             continue
-                        gt[i, j] = ids > 0
+                        gt[i, j] = np.stack(ids) > 0
                         rv[i, j] = True
                         counts[i] += 1
             # every rank takes the same branch: a chunk is skipped only

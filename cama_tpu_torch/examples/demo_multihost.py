@@ -34,8 +34,7 @@ def child(pid, n, port, workdir, device):
     """One rank: its scenes' metric partials, summed over the cluster."""
     import torch
 
-    from cama_tpu_torch.eval.map_metrics import (MapEvaluator, frame_metrics,
-                                                 reduce_metrics)
+    from cama_tpu_torch.eval.map_metrics import MapEvaluator, reduce_metrics
     from cama_tpu_torch.parallel import multihost
     from cama_tpu_torch.pipeline import ClipPipeline
 
@@ -43,21 +42,17 @@ def child(pid, n, port, workdir, device):
 
     def process(scene):
         """Per-scene metric partials (plain sums: they add up across
-        processes as across frames)."""
+        processes as across frames), the totals behind the scene's
+        evaluate_scene ratios."""
         pipe = ClipPipeline(clip_path=os.path.join(workdir, scene), chunk=4,
                             device=device)
-        ev = MapEvaluator(tolerance=4)
-        partials = {}
-        for image_idx, vu, keep in ev._iter_frame_projections(pipe, "cama",
-                                                              None):
-            ids = ev._load_all_cameras(pipe, image_idx)
-            if ids is None:
-                continue
-            gt = torch.from_numpy(ids > 0).to(pipe.device)
-            for k, v in frame_metrics(gt, vu, keep, ev.max_radius,
-                                      ev.tolerance, ev.distance).items():
-                partials[k] = partials.get(k, 0.0) + float(v)
-        return partials
+        r = MapEvaluator(tolerance=4).evaluate_scene(pipe, "cama")
+        if not r["frames_evaluated"]:
+            return {}
+        return {"sre_sum": r["SRE"] * r["n_points"],
+                "n_hit": r["precision"] * r["n_points"],
+                "n_points": r["n_points"], "gt_total": r["gt_pixels"],
+                "gt_covered": r["recall"] * r["gt_pixels"]}
 
     results, failures = multihost.run_local_scenes(SCENES, process)
     local = {}

@@ -103,10 +103,11 @@ next to this script):
        MASK_SHIFT_PX low), then
        MapEvaluator.evaluate_scene_all on ClipPipeline(device='cuda'), cold
        and warm, for both distances: equal dicts, equal to compact='off' and
-       resident='off', within 1e-4 of backend='host'; evaluated frames/s,
-       the card's busy share, resident bytes, peak device memory and the
-       evaluator's PhaseTimers report.  Every chunk function of the
-       evaluator is wrapped to raise on a CPU tensor.
+       to a frames list of every frame (fields built, none kept), within
+       1e-4 of backend='host'; evaluated frames/s, the card's busy share,
+       the kept fields' bytes, peak device memory and the evaluator's
+       PhaseTimers report.  Every chunk function of the evaluator is
+       wrapped to raise on a CPU tensor.
 
   7. the CAMAv2 site path (cama_tpu_torch.aggregate), lines tagged [site]
      and [lidar]; _chamfer_pairs, _refine_step and _transform_points are
@@ -1101,9 +1102,8 @@ def eval_phase(clip, dev, card):
 
     # every chunk function of the evaluator must see tensors on the card
     # (dev) only
-    guarded = ("_eval_chunk_build", "_eval_chunk_serve",
-               "frame_metrics_chunk_packed", "frame_metrics_rows_packed",
-               "_metrics_and_votes_chunk", "instance_votes_chunk")
+    guarded = ("_eval_chunk_build", "_eval_chunk_serve", "_gt_fields",
+               "_sample_fields", "instance_votes_chunk")
     calls = dict.fromkeys(guarded, 0)
 
     def on_card(name, real):
@@ -1315,12 +1315,15 @@ def eval_phase(clip, dev, card):
                                    f"{n_serve} serves, expected 2 and 6")
             busy = device_busy_ms(lambda: ev.evaluate_scene_all(pipe))
             store = ev._resident_fields[pipe]
-            for kw in ({"compact": "off"}, {"resident": "off"}):
-                other = tm.MapEvaluator(tolerance=TOL, max_radius=RAD,
-                                        distance=distance,
-                                        **kw).evaluate_scene_all(pipe)
+            every = [i for _s, idxs in ev._chunk_layout(pipe, "cama")
+                     for i in idxs if i is not None]
+            for kw, frames in (({"compact": "off"}, None), ({}, every)):
+                other = tm.MapEvaluator(
+                    tolerance=TOL, max_radius=RAD, distance=distance,
+                    **kw).evaluate_scene_all(pipe, frames=frames)
                 if other != cold:
-                    raise RuntimeError(f"{distance} {kw}: {other} != {cold}")
+                    raise RuntimeError(f"{distance} {kw} frames={frames}: "
+                                       f"{other} != {cold}")
             t0 = time.perf_counter()
             hev = tm.MapEvaluator(tolerance=TOL, max_radius=RAD,
                                   distance=distance, backend="host")
@@ -1335,7 +1338,7 @@ def eval_phase(clip, dev, card):
                         f"evaluate_scene_all on ClipPipeline(device='cuda'), "
                         f"wide fixture 'cama', {n} frames: {json.dumps(cold)}; "
                         f"warm == cold (3 warm passes), compact='off' and "
-                        f"resident='off' give the same dict; "
+                        f"a frames list of every frame give the same dict; "
                         f"backend='host' "
                         f"({'evaluate_scene_all' if distance == 'chebyshev' else 'evaluate_scene'}, "
                         f"{host_secs:.2f} s) differs by at most {apart:.3e} "
@@ -1347,7 +1350,7 @@ def eval_phase(clip, dev, card):
                         f"{fmt(busy, 1.0)} ms"
                         + ("" if busy is None else
                            f" = {100.0 * busy / (1000.0 * wm):.2f} % of it")
-                        + f"; resident fields {store['bytes'] / 1e6:.1f} MB "
+                        + f"; kept fields {store['bytes'] / 1e6:.1f} MB "
                         f"in {len(store['chunks'])} chunks; peak device "
                         f"memory of the cold pass {peak / 2**20:.1f} MiB, "
                         f"{before / 2**20:.1f} MiB allocated before it | "

@@ -80,25 +80,37 @@ def wide(tmp_path_factory):
     return clip
 
 
-def test_compact_auto_equals_off_on_a_wide_clip(wide):
+def test_compact_auto_equals_off_on_a_wide_clip(wide, monkeypatch):
+    """On the whole scene, whose fields the evaluator keeps, and on a subset
+    of its frames, which keeps none."""
     pipe = _pipe(wide, chunk=4)
     assert pipe.crop_compact_k("cama") is None  # not sized yet: stays off
     pipe.overlay_mode("cama")
     k1 = pipe.crop_compact_k("cama")
     assert k1 is not None and 2 * k1 <= pipe.scene.flat["cama"].points.shape[0]
-    results = [tm.MapEvaluator(compact=c, resident=r).evaluate_scene_all(pipe)
-               for c, r in (("auto", "auto"), ("off", "auto"), ("auto", "off"))]
-    assert all(r == results[0] for r in results[1:])
-    assert results[0]["frames_evaluated"] == 3
-    assert 0.0 < results[0]["precision"] < 1.0
-    host = [tm.MapEvaluator(backend="host", compact=c).evaluate_scene(pipe)
-            for c in ("auto", "off")]
-    assert host[0] == host[1]
-    _assert_close(results[0], host[0])
-    # the projection really compacted
-    ev = tm.MapEvaluator()
-    _, vu_c, _, sel = next(ev._iter_chunk_projections(pipe, "cama", None))
-    assert vu_c.shape[2] == k1 and sel.dtype == torch.int32
+    build = tm._eval_chunk_build
+    built = []
+
+    def spy(*a, **k):
+        out = build(*a, **k)
+        built.append((out[2].shape, out[3]))
+        return out
+
+    monkeypatch.setattr(tm, "_eval_chunk_build", spy)
+    for frames in (None, [2, 3]):
+        results = [tm.MapEvaluator(compact=c).evaluate_scene_all(
+            pipe, frames=frames) for c in ("auto", "off")]
+        assert results[0] == results[1]
+        assert results[0]["frames_evaluated"] == (3 if frames is None else 2)
+        assert 0.0 < results[0]["precision"] < 1.0
+        host = [tm.MapEvaluator(backend="host", compact=c).evaluate_scene(
+            pipe, frames=frames) for c in ("auto", "off")]
+        assert host[0] == host[1]
+        _assert_close(results[0], host[0])
+        # the projection really compacted, and only under 'auto'
+        (keep_auto, sel), (keep_off, no_sel) = built[-2:]
+        assert keep_auto[2] == k1 and sel.dtype == torch.int32
+        assert keep_off[2] > k1 and no_sel is None
 
 
 @pytest.mark.parametrize("instances", [False, True])
@@ -133,3 +145,47 @@ def test_batch_without_the_source_raises(clips):
                 pipes, source="nuscenes")
 
 
+
+
+@pytest.mark.parametrize("entry,case", [
+    (entry, case)
+    for entry in ("evaluate_scene", "evaluate_scene_instances",
+                  "evaluate_scene_all", "evaluate_scene_batch")
+    for case in ("whole", "frames", "no_store")
+    if (entry, case) != ("evaluate_scene_batch", "frames")])  # no frames arg
+def test_every_entry_equals_the_host_backend(clips, monkeypatch, entry,
+                                             case):
+    """Every entry on the device against the host backend, on the whole
+    scene (fields kept), on frames [2, 3] and on a pipeline without a GT
+    store (frame_cache off; fields built, none kept): counts exactly,
+    ratios within ABS_TOL.  The GT goes to the device as ids, never
+    bitpacked on the host."""
+    def refused(*a, **k):
+        raise AssertionError("np.packbits ran")
+
+    monkeypatch.setattr(tm.np, "packbits", refused)
+    configs = {"frame_cache": False} if case == "no_store" else None
+    names = ("shifted", "plain") if entry == "evaluate_scene_batch" else (
+        "shifted",)
+    pipes = [ClipPipeline(configs, scene=_pipe(clips[n]).scene, chunk=2,
+                          device="cpu") for n in names]
+    assert (pipes[0].gt_mask_cache() is None) == (case == "no_store")
+    kw = {"frames": [2, 3]} if case == "frames" else {}
+    if entry == "evaluate_scene_batch":
+        kw["instances"] = True
+        arg = pipes
+    else:
+        arg = pipes[0]
+    got = getattr(tm.MapEvaluator(), entry)(arg, **kw)
+    want = getattr(tm.MapEvaluator(backend="host"), entry)(arg, **kw)
+    if entry != "evaluate_scene_batch":
+        got, want = [got], [want]
+    for g, h in zip(got, want):
+        assert set(g) == set(h)
+        for key, value in h.items():
+            if key in EXACT_KEYS or key.startswith("n_"):
+                assert g[key] == value, key
+            else:
+                assert abs(g[key] - value) <= ABS_TOL, (key, g[key], value)
+        assert g["frames_evaluated"] == (2 if case == "frames" else
+                                         4 if h is want[0] else 3)

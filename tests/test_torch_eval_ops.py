@@ -264,7 +264,7 @@ def test_chunk_gt_writes_every_row(monkeypatch, device, backend, pinned):
     ev = tm.MapEvaluator(backend=backend)
     monkeypatch.setattr(ev, "instance_loader", loader)
     idxs = [0, None, 2, 3, None]
-    ids_b, fv, evaluated = ev._chunk_gt(pipe(device), idxs)
+    ids_b, fv, evaluated = ev._chunk_gt([pipe(device)] * len(idxs), idxs)
     want = np.zeros((len(idxs), len(cams), H, W), np.uint16)
     for kk in (0, 3):
         want[kk] = np.stack([images[idxs[kk], cam] for cam in cams])
@@ -273,7 +273,7 @@ def test_chunk_gt_writes_every_row(monkeypatch, device, backend, pinned):
     np.testing.assert_array_equal(ids_b, want)
     np.testing.assert_array_equal(fv, [1, 0, 0, 1, 0])
     assert evaluated == [(0, 0), (3, 3)]
-    none, fv, evaluated = ev._chunk_gt(pipe(device), [None, 2])
+    none, fv, evaluated = ev._chunk_gt([pipe(device)] * 2, [None, 2])
     assert none is None and not fv.any() and evaluated == []
     assert asked == [pinned]  # no stack for a chunk without GT
 
@@ -322,7 +322,7 @@ def test_staged_ids_on_the_card(gt_clip, monkeypatch):
     pipe = ClipPipeline(scene=gt_clip, chunk=3, device="cuda")
     ev = tm.MapEvaluator()
     _s, idxs = next(ev._chunk_layout(pipe, "cama"))
-    ids_b, _fv, evaluated = ev._chunk_gt(pipe, idxs)
+    ids_b, _fv, evaluated = ev._chunk_gt([pipe] * len(idxs), idxs)
     assert evaluated and torch.from_numpy(ids_b).is_pinned()
     staged = tm.device_ids(ids_b, "cuda", ev.timers)
     pageable = tm.device_ids(ids_b.copy(), "cuda", ev.timers)
@@ -402,9 +402,10 @@ def _assert_partials(got, want, distance, rows=None):
 
 @pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])
 def test_frame_metrics_forms(distance):
-    """frame_metrics, _rows, _chunk and the two _packed forms: every
-    Chebyshev partial exact; Euclidean sre_sum to 1e-6 relative, the other
-    four exact."""
+    """frame_metrics, _rows and _chunk, against the JAX forms and against
+    the JAX package's two _packed forms, fed the same masks bitpacked on the
+    host: every Chebyshev partial exact; Euclidean sre_sum to 1e-6
+    relative, the other four exact."""
     fv = np.array([1.0, 0.0], np.float32)
     packed = np.packbits(MASKS, axis=-1)
     j = [jnp.asarray(a) for a in (MASKS, VU, KEEP)]
@@ -417,8 +418,7 @@ def test_frame_metrics_forms(distance):
     _assert_partials(tm.frame_metrics_rows(*t, RAD, TOL, distance),
                      want_rows, distance, rows=K)
     _assert_partials(
-        tm.frame_metrics_rows_packed(T(packed), t[1], t[2], W, RAD, TOL,
-                                     distance),
+        tm.frame_metrics_rows(*t, RAD, TOL, distance),
         jm.frame_metrics_rows_packed(jnp.asarray(packed), j[1], j[2], W, RAD,
                                      TOL, distance), distance, rows=K)
     want_chunk = jm.frame_metrics_chunk(*j, jnp.asarray(fv), RAD, TOL,
@@ -426,8 +426,7 @@ def test_frame_metrics_forms(distance):
     _assert_partials(tm.frame_metrics_chunk(*t, T(fv), RAD, TOL, distance),
                      want_chunk, distance)
     _assert_partials(
-        tm.frame_metrics_chunk_packed(T(packed), t[1], t[2], T(fv), W, RAD,
-                                      TOL, distance),
+        tm.frame_metrics_chunk(*t, T(fv), RAD, TOL, distance),
         jm.frame_metrics_chunk_packed(jnp.asarray(packed), j[1], j[2],
                                       jnp.asarray(fv), W, RAD, TOL, distance),
         distance)
@@ -436,14 +435,28 @@ def test_frame_metrics_forms(distance):
 
 
 def test_metrics_and_votes_chunk():
-    fv = np.array([1.0, 1.0], np.float32)
+    """The evaluator's device step with votes, fields derived from the ids
+    (_gt_fields) and sampled per row (_sample_fields), summed over the
+    valid rows: JAX's _metrics_and_votes_chunk on the same arrays."""
+    fv = np.array([1.0, 0.0], np.float32)
     wp, wv = jm._metrics_and_votes_chunk(
         jnp.asarray(IDS), jnp.asarray(VU), jnp.asarray(KEEP), jnp.asarray(fv),
         RAD, TOL, "chebyshev", "nearest")
-    gp, gv = tm._metrics_and_votes_chunk(T(IDS), T(VU), T(KEEP), T(fv), RAD,
-                                         TOL, "chebyshev", "nearest")
-    _assert_partials(gp, wp, "chebyshev")
+    fields = tm._gt_fields(T(IDS), RAD, TOL, "chebyshev", "nearest", True,
+                           True)
+    rows, gv = tm._sample_fields(*fields, T(VU), T(KEEP), RAD, TOL,
+                                 "chebyshev")
+    _assert_partials({k: (v * T(fv)).sum() for k, v in rows.items()}, wp,
+                     "chebyshev")
+    assert gv.dtype == torch.uint16
     np.testing.assert_array_equal(N(gv)[KEEP], np.asarray(wv)[KEEP])
+    only_votes = tm._gt_fields(T(IDS), RAD, TOL, "chebyshev", "nearest",
+                               False, True)
+    assert only_votes[1] is None
+    none, votes = tm._sample_fields(*only_votes, T(VU), T(KEEP), RAD, TOL,
+                                    "chebyshev")
+    assert none is None and torch.equal(votes.view(torch.int16),
+                                        gv.view(torch.int16))
 
 
 @pytest.mark.parametrize("distance", ["chebyshev", "euclidean"])

@@ -142,16 +142,27 @@ def test_against_jax_package(clips, baseline, case):
 
 
 def test_partials_equal_host_mirror_exactly(clips):
-    """The tensor path's Chebyshev partials of a chunk equal the sum of
-    frame_metrics_host over the same (vu, keep), frame by frame."""
+    """The evaluator's device step (_eval_chunk_build) gives Chebyshev
+    partials of a chunk equal to the sum of frame_metrics_host over the
+    same (vu, keep), frame by frame."""
+    from cama_tpu_torch.ops.geometry import project_frames
+
     pipe = _pipe(clips["shifted"])
-    ev = tm.MapEvaluator(resident="off")
+    ev = tm.MapEvaluator()
+    st = pipe.scene_tensors("cama")
+    h, w = pipe.scene.output_size
+    geo = (w, h, pipe._crop_lo, pipe._crop_hi)
     n = 0
-    for idxs, vu_c, keep_c, _ in ev._iter_chunk_projections(pipe, "cama",
-                                                            None):
-        ids_b, fv, evaluated = ev._chunk_gt(pipe, idxs)
-        got = tm.frame_metrics_chunk(torch.from_numpy(ids_b > 0), vu_c,
-                                     keep_c, torch.from_numpy(fv), 20, 5)
+    for s, idxs in ev._chunk_layout(pipe, "cama"):
+        ids_b, fv, evaluated = ev._chunk_gt([pipe] * len(idxs), idxs)
+        sl, fvb = slice(s, s + pipe.chunk), torch.from_numpy(fv > 0)
+        got, _, keep_c, _, *_fields = tm._eval_chunk_build(
+            st.points, st.valid, st.A[sl], st.B[sl], fvb,
+            torch.from_numpy(ids_b), *geo, None, 20, 5, "chebyshev",
+            "nearest", False)
+        vu_c, keep_p = project_frames(st.points, st.valid, st.A[sl],
+                                      st.B[sl], fvb, *geo)
+        assert torch.equal(keep_c, keep_p)
         want = dict.fromkeys(tm.PARTIAL_KEYS, 0.0)
         for kk, _idx in evaluated:
             row = tm.frame_metrics_host(ids_b[kk] > 0, vu_c[kk].numpy(),
@@ -174,12 +185,17 @@ def test_resident_off_and_warm_call_give_the_same_dict(clips, baseline):
     warm = ev.evaluate_scene_all(pipe)
     assert ev.timers.count["eval_dispatch"] == n_dispatch + 1
     assert ev.timers.count["eval_gt_load"] == 1  # served from the fields
-    off = tm.MapEvaluator(resident="off").evaluate_scene_all(pipe)
-    assert cold == warm == off == baseline[name]
+    fresh = tm.MapEvaluator().evaluate_scene_all(pipe)
+    assert cold == warm == fresh == baseline[name]
     # the binary pass reuses the fields the instance pass built
-    assert ev.evaluate_scene(pipe) == tm.MapEvaluator(
-        resident="off").evaluate_scene(pipe)
+    assert ev.evaluate_scene(pipe) == tm.MapEvaluator().evaluate_scene(pipe)
     assert ev.timers.count["eval_gt_load"] == 1
+    # and so does the instance pass; a subset of the frames keeps nothing
+    assert ev.evaluate_scene_instances(pipe) == tm.MapEvaluator(
+    ).evaluate_scene_instances(pipe)
+    assert ev.evaluate_scene_all(pipe, frames=[1, 2, 3, 4]) == cold
+    assert ev.timers.count["eval_gt_load"] == 2
+    assert len(store["chunks"]) == 1
 
 
 def test_all_equals_the_two_separate_passes(clips, baseline):
@@ -245,7 +261,7 @@ def test_host_backend_agrees_with_device(clips, distance):
     assert dev["n_map_instances"] == host["n_map_instances"]
     if distance == "euclidean":
         return
-    # a frames filter takes the non-resident path on both backends
+    # a frames filter keeps no fields on the device
     sub = tm.MapEvaluator(**kw).evaluate_scene_all(pipe, frames=[2, 3])
     hsub = tm.MapEvaluator(backend="host", **kw).evaluate_scene_all(
         pipe, frames=[2, 3])
@@ -315,9 +331,11 @@ def test_sharded_batch_waits_for_its_item(clips):
 
 
 def test_evaluator_rejects_unknown_settings():
-    for kw in ({"compact": "on"}, {"resident": "yes"}, {"backend": "tpu"}):
+    for kw in ({"compact": "on"}, {"backend": "tpu"}):
         with pytest.raises(ValueError):
             tm.MapEvaluator(**kw)
+    with pytest.raises(TypeError):  # the fields are kept whenever they can be
+        tm.MapEvaluator(resident="off")
 
 
 # --- the GT store's signature: the port's reader against the JAX
@@ -456,7 +474,7 @@ def test_remasked_png_drops_the_store_and_rebuilds(gt_clip, tmp_path):
     rebuilt = pipe.gt_mask_cache()
     assert rebuilt is not cache and rebuilt.key != cache.key
     assert after != first
-    assert after == tm.MapEvaluator(resident="off").evaluate_scene(
+    assert after == tm.MapEvaluator().evaluate_scene(
         ClipPipeline(scene=compile_scene(clip, output_size=SMALL), chunk=4,
                      device="cpu"))
 

@@ -182,14 +182,14 @@ def test_evaluate_scene_times_its_set_up(gt_clip):
     scene = compile_scene(gt_clip, output_size=(90, 160))
     pipe = tpipe.ClipPipeline(scene=scene, chunk=2, device="cpu")
     assert "scene_compile" not in pipe.timers.count  # a scene given: no lifting
-    for resident in ("auto", "off"):
-        ev = MapEvaluator(resident=resident)
+    for frames in (None, [1, 2]):  # the fields kept, and none kept
+        ev = MapEvaluator()
         with profiling.span_log() as log:
-            out = ev.evaluate_scene(pipe)
+            out = ev.evaluate_scene(pipe, frames=frames)
         assert out["frames_evaluated"] > 0
-        assert ev.timers.count["eval_gt_refresh"] >= 1, resident
-        assert ev.timers.count["eval_layout"] == 1, resident
-        assert ev.timers.count["eval_gt_load"] >= 1, resident
+        assert ev.timers.count["eval_gt_refresh"] >= 1, frames
+        assert ev.timers.count["eval_layout"] == 1, frames
+        assert ev.timers.count["eval_gt_load"] >= 1, frames
         _check_disjoint(log.spans)
 
 
