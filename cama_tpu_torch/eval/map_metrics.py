@@ -36,9 +36,10 @@ int32 where they compare them.
 
 MapEvaluator's entries on one device (evaluate_scene, _instances, _all and
 _batch) share one chunk loop, MapEvaluator._evaluate: _chunk_layout lays
-out the chunks, _chunk_gt copies a chunk's GT ids into one stack (on the
-card in page-locked host memory, _id_stack), device_ids sends it as it
-stands in one copy, and the GT fields derived there (_gt_fields) are
+out the chunks, _chunk_gt fills a chunk's GT ids into one stack (one read
+of the GT store per run of frames that hit it; on the card the stack lies
+in page-locked host memory, _id_stack), device_ids sends it as it stands
+in one copy, and the GT fields derived there (_gt_fields) are
 sampled at the projected points (_eval_core, or _sample_fields per row for
 a batch of scenes).  A whole-scene evaluation keeps each chunk's fields on
 the device for the next one.  The JAX package sends sparse stacks as COO
@@ -966,7 +967,10 @@ class MapEvaluator:
         """Load and nearest-remap a `lane_ins_{camera}` instance-id PNG to
         the output size (the undistort remap with INTER_NEAREST).  Returns
         [H, W] int ids (0 = background) or None.  Served from the per-clip
-        GT mask store (pipeline.gt_mask_cache) after the first decode."""
+        GT mask store (pipeline.gt_mask_cache) after the first decode, once
+        the PNG is found on disk.  The chunk loader (_chunk_gt) calls it
+        only for rows its bulk read of the store cannot serve: a store hit
+        there reads with no path check."""
         import cv2
 
         scene = pipeline.scene
@@ -1019,29 +1023,59 @@ class MapEvaluator:
         fv [K] float32 row validity; evaluated (row, frame index) list), or
         (None, fv, []) when no row in the chunk has GT masks (the chunk's
         metric work is skipped entirely).  uint16 holds any id cv2 can read
-        from a lane_ins PNG (8- or 16-bit).  Each camera's image is copied
-        once, straight into its row; for a device evaluator on the card the
-        stack lies in page-locked memory, which device_ids sends as it
-        stands."""
+        from a lane_ins PNG (8- or 16-bit).  For a device evaluator on the
+        card the stack lies in page-locked memory, which device_ids sends
+        as it stands.
+
+        Rows whose frames are complete in the GT store (every camera's slot
+        a hit; FrameCache.complete) are taken in runs: consecutive frames
+        of one pipeline in consecutive rows.  A run is one bulk read
+        straight into its rows (FrameCache.read_into), with no lookup of
+        any lane_ins file: the refresh at the entry re-signed the PNGs and
+        keys the store by them, so a valid slot proves its PNG is there.
+        Every other row (a miss, a pipeline without a store) goes through
+        _camera_ids.  self.timers counts eval_gt_store_rows and
+        eval_gt_store_reads (rows and reads of the bulk path) and
+        eval_gt_decoded_rows (rows that took _camera_ids)."""
+        K = len(idxs)
         ids_b = None
-        fv = np.zeros((len(idxs),), np.float32)
+        fv = np.zeros((K,), np.float32)
         evaluated = []
-        for kk, (pipe, image_idx) in enumerate(zip(pipes, idxs)):
-            if image_idx is None:
+        kk = 0
+        while kk < K:
+            pipe, i0 = pipes[kk], idxs[kk]
+            if i0 is None:
+                kk += 1
                 continue
-            ids = self._camera_ids(pipe, image_idx)
-            if ids is None:
+            pinned = self.backend == "device" and pipe.device.type == "cuda"
+            store = pipe.gt_mask_cache()
+            n = 0
+            while (store is not None and kk + n < K and pipes[kk + n] is pipe
+                   and idxs[kk + n] == i0 + n and store.complete(i0 + n)):
+                n += 1
+            if n:
+                if ids_b is None:
+                    ids_b = _id_stack((K,) + store.shape[1:], pinned)
+                store.read_into(i0, ids_b[kk:kk + n])
+                self.timers.add("eval_gt_store_rows", 0.0, n)
+                self.timers.add("eval_gt_store_reads", 0.0)
+                fv[kk:kk + n] = 1.0
+                evaluated.extend((kk + j, i0 + j) for j in range(n))
+                kk += n
                 continue
-            if ids_b is None:
-                ids_b = _id_stack(
-                    (len(idxs), len(ids)) + ids[0].shape,
-                    self.backend == "device" and pipe.device.type == "cuda")
-            for c, m in enumerate(ids):
-                ids_b[kk, c] = m
-            fv[kk] = 1.0
-            evaluated.append((kk, image_idx))
-        if ids_b is not None:
-            ids_b[fv == 0] = 0  # the stack starts uninitialised
+            self.timers.add("eval_gt_decoded_rows", 0.0)
+            ids = self._camera_ids(pipe, i0)
+            if ids is not None:
+                if ids_b is None:
+                    ids_b = _id_stack((K, len(ids)) + ids[0].shape, pinned)
+                for c, m in enumerate(ids):
+                    ids_b[kk, c] = m
+                fv[kk] = 1.0
+                evaluated.append((kk, i0))
+            kk += 1
+        if not evaluated:
+            return None, fv, []
+        ids_b[fv == 0] = 0  # the stack starts uninitialised
         return ids_b, fv, evaluated
 
     def _chunk_layout(self, pipeline, source):

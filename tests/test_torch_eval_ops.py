@@ -14,6 +14,8 @@ from scipy import ndimage
 import jax.numpy as jnp
 
 from cama_tpu.eval import map_metrics as jm
+from cama_tpu.io.scene import compile_scene as jcompile_scene
+from cama_tpu.pipeline import ClipPipeline as JClipPipeline
 from cama_tpu_torch.eval import map_metrics as tm
 from cama_tpu_torch.io.fixture import add_instance_masks, make_fixture_clip
 from cama_tpu_torch.io.scene import compile_scene
@@ -239,7 +241,8 @@ def _stub_gt(frames, cameras):
 
     def pipe(device):
         return SimpleNamespace(device=torch.device(device),
-                               scene=SimpleNamespace(camera_list=cameras))
+                               scene=SimpleNamespace(camera_list=cameras),
+                               gt_mask_cache=lambda: None)
     return images, loader, pipe
 
 
@@ -354,6 +357,198 @@ def test_staged_ids_on_the_card(gt_clip, monkeypatch):
     assert ev.evaluate_scene(pipe) == got
     assert ev.timers.count["eval_gt_pageable"] == 2
     assert ev.timers.count["eval_gt_staged"] == 0
+
+
+@pytest.fixture(scope="module")
+def full_gt_clip(tmp_path_factory):
+    """gt_clip's kind of clip with every mask present, drawn 3 px off the
+    reprojection (so its ids differ from gt_clip's), compiled at
+    135 x 240."""
+    clip = make_fixture_clip(tmp_path_factory.mktemp("tids_full"), n_frames=5,
+                             with_images=False)
+    add_instance_masks(clip, shift_px=3.0)
+    return compile_scene(clip, output_size=(135, 240))
+
+
+def _stored(scene, store_dir, frames=None):
+    """A CPU pipeline over `scene` whose GT store lies in `store_dir`, with
+    the slots of `frames` (every frame by default) filled by a decode."""
+    pipe = ClipPipeline(configs={"frame_cache_dir": str(store_dir)},
+                        scene=scene, chunk=3, device="cpu")
+    ev = tm.MapEvaluator()
+    for i in (range(len(scene.frame_times)) if frames is None else frames):
+        ev._camera_ids(pipe, i)
+    pipe.gt_mask_cache().flush()
+    return pipe
+
+
+def _per_camera_gt(pipes, idxs):
+    """_chunk_gt's three results built row by row from _camera_ids on
+    pipelines of the same scenes without a GT store (every mask decoded)."""
+    plain = {}
+    ev = tm.MapEvaluator()
+    ids_b = np.zeros((len(idxs), 6, 135, 240), np.uint16)
+    fv = np.zeros((len(idxs),), np.float32)
+    evaluated = []
+    for kk, (pipe, i) in enumerate(zip(pipes, idxs)):
+        if i is None:
+            continue
+        if id(pipe) not in plain:
+            plain[id(pipe)] = ClipPipeline(configs={"frame_cache": False},
+                                           scene=pipe.scene, device="cpu")
+        ids = ev._camera_ids(plain[id(pipe)], i)
+        if ids is not None:
+            ids_b[kk] = np.stack(ids)
+            fv[kk] = 1.0
+            evaluated.append((kk, i))
+    return ids_b, fv, evaluated
+
+
+@pytest.mark.parametrize("case,idxs,counts", [
+    ("miss_in_the_middle", [1, 2, 3, 4], (2, 3, 1)),
+    ("not_consecutive", [4, 2, 3], (2, 3, 0)),
+    ("none_rows", [None, 2, None, 3, 4], (2, 3, 0)),
+    ("fleet_of_two", [1, 2, 3, 4], (2, 4, 0)),
+    ("no_store", [1, 2, 3], (0, 0, 3)),
+    ("frame_lacking_a_mask", [1, 2, 3], (1, 2, 1)),
+])
+def test_chunk_gt_equals_the_per_camera_path(gt_clip, full_gt_clip, tmp_path,
+                                             case, idxs, counts):
+    """_chunk_gt's stack, row validity and evaluated rows equal, byte for
+    byte, those of _camera_ids row by row with every mask decoded: frames
+    complete in the GT store are read in runs (consecutive frames of one
+    pipeline in consecutive rows), every other row decodes.  counts are
+    the reads, the rows they filled and the rows decoded.  Cases: frame 3
+    a miss between hits; rows out of frame order; rows without a frame;
+    two pipelines over clips with other masks, their frames consecutive
+    across the boundary (two runs); a pipeline without a store; gt_clip,
+    whose frame 1 lacks a camera's mask."""
+    if case == "miss_in_the_middle":
+        pipes = [_stored(full_gt_clip, tmp_path, frames=[1, 2, 4])] * 4
+    elif case == "fleet_of_two":
+        pipes = ([_stored(full_gt_clip, tmp_path / "a")] * 2
+                 + [_stored(gt_clip, tmp_path / "b")] * 2)
+    elif case == "no_store":
+        pipes = [ClipPipeline(configs={"frame_cache": False},
+                              scene=full_gt_clip, device="cpu")] * 3
+    elif case == "frame_lacking_a_mask":
+        pipes = [_stored(gt_clip, tmp_path)] * 3
+    else:
+        pipes = [_stored(full_gt_clip, tmp_path)] * len(idxs)
+    ev = tm.MapEvaluator()
+    ids_b, fv, evaluated = ev._chunk_gt(pipes, idxs)
+    want_ids, want_fv, want_evaluated = _per_camera_gt(pipes, idxs)
+    assert ids_b.dtype == np.uint16
+    np.testing.assert_array_equal(ids_b, want_ids)
+    np.testing.assert_array_equal(fv, want_fv)
+    assert evaluated == want_evaluated
+    got = tuple(ev.timers.count[k] for k in (
+        "eval_gt_store_reads", "eval_gt_store_rows", "eval_gt_decoded_rows"))
+    assert got == counts
+
+
+@pytest.mark.parametrize("case,idxs,counts", [
+    ("miss_in_the_middle", [1, 2, 3, 4], (2, 3, 1)),
+    ("none_rows", [None, 2, None, 3, 4], (2, 3, 0)),
+    ("frame_lacking_a_mask", [1, 2, 3], (1, 2, 1)),
+])
+def test_chunk_gt_equals_the_jax_packages(gt_clip, full_gt_clip, tmp_path,
+                                          case, idxs, counts):
+    """The port's _chunk_gt, with runs read from the GT store, equals the
+    JAX package's _chunk_gt (every row through its instance_loader) on the
+    same clip and the one store both packages share (same key, same
+    bytes), warmed once by the port: the stack byte for byte, row
+    validity and evaluated rows.  Cases: frame 3 a miss between hits; rows
+    without a frame; gt_clip, whose frame 1 lacks a camera's mask."""
+    scene = gt_clip if case == "frame_lacking_a_mask" else full_gt_clip
+    pipe = _stored(scene, tmp_path,
+                   frames=[1, 2, 4] if case == "miss_in_the_middle" else None)
+    jpipe = JClipPipeline(configs={"frame_cache_dir": str(tmp_path)},
+                          scene=jcompile_scene(scene.clip_path,
+                                               output_size=(135, 240)),
+                          chunk=3)
+    assert jpipe._gt_cache_key() == pipe._gt_cache_key()
+    ev = tm.MapEvaluator()
+    ids_b, fv, evaluated = ev._chunk_gt([pipe] * len(idxs), idxs)
+    got = tuple(ev.timers.count[k] for k in (
+        "eval_gt_store_reads", "eval_gt_store_rows", "eval_gt_decoded_rows"))
+    assert got == counts
+    want_ids, want_fv, want_evaluated = jm.MapEvaluator()._chunk_gt(jpipe,
+                                                                    idxs)
+    assert ids_b.dtype == want_ids.dtype == np.uint16
+    np.testing.assert_array_equal(ids_b, want_ids)
+    np.testing.assert_array_equal(fv, want_fv)
+    assert evaluated == want_evaluated
+
+
+@pytest.mark.parametrize("which,counts", [("full", (2, 4, 0)),
+                                          ("lacking", (2, 3, 1))])
+def test_warm_pass_looks_up_no_stored_mask(gt_clip, full_gt_clip, tmp_path,
+                                           monkeypatch, which, counts):
+    """A warm evaluate_scene (chunk 3: rows [-, 1, 2] and [3, 4, -]) reads
+    the GT store in runs and looks up no lane_ins path of a stored frame:
+    none on a clip with every mask, only frame 1's on gt_clip, whose
+    frame 1 lacks a camera's mask and so never completes in the store.
+    The counters read the runs' reads, their rows and the rows decoded,
+    and the dict equals the cold pass's."""
+    scene = full_gt_clip if which == "full" else gt_clip
+    pipe = ClipPipeline(configs={"frame_cache_dir": str(tmp_path)},
+                        scene=scene, chunk=3, device="cpu")
+    cold = tm.MapEvaluator().evaluate_scene(pipe)
+    pipe.gt_mask_cache().flush()
+    looked_up = []
+    real_exists, real_stat = os.path.exists, os.stat
+
+    def exists(path):
+        looked_up.append(str(path))
+        return real_exists(path)
+
+    def stat(path, *args, **kwargs):
+        looked_up.append(str(path))
+        return real_stat(path, *args, **kwargs)
+
+    monkeypatch.setattr(os.path, "exists", exists)
+    monkeypatch.setattr(os, "stat", stat)
+    ev = tm.MapEvaluator()
+    warm = ev.evaluate_scene(pipe)
+    monkeypatch.undo()
+    assert warm == cold
+    lane_ins = [p for p in looked_up if "lane_ins_" in p]
+    frame1 = {f"{scene.clip_path}/lane_ins_{cam}/{scene.sync_ms[cam][1]}.png"
+              for cam in scene.camera_list}
+    if which == "full":
+        assert lane_ins == []
+    else:
+        assert lane_ins and set(lane_ins) <= frame1
+    got = tuple(ev.timers.count[k] for k in (
+        "eval_gt_store_reads", "eval_gt_store_rows", "eval_gt_decoded_rows"))
+    assert got == counts
+
+
+def test_deleted_mask_leaves_its_frame_unevaluated(tmp_path):
+    """A PNG deleted between two evaluations on one pipeline: the second
+    drops the frame (the refresh re-signs the PNGs and drops the store the
+    first filled), and its dict equals a fresh pipeline's."""
+    clip = make_fixture_clip(tmp_path / "clip", n_frames=5, with_images=False)
+    add_instance_masks(clip, shift_px=3.0)
+    scene = compile_scene(clip, output_size=(135, 240))
+    pipe = ClipPipeline(configs={"frame_cache_dir": str(tmp_path / "s1")},
+                        scene=scene, chunk=3, device="cpu")
+    first = tm.MapEvaluator().evaluate_scene(pipe)
+    pipe.gt_mask_cache().flush()
+    ev = tm.MapEvaluator()
+    assert ev.evaluate_scene(pipe) == first
+    assert ev.timers.count["eval_gt_decoded_rows"] == 0
+    cam = scene.camera_list[4]
+    os.remove(os.path.join(clip, f"lane_ins_{cam}",
+                           f"{scene.sync_ms[cam][3]}.png"))
+    ev = tm.MapEvaluator()
+    after = ev.evaluate_scene(pipe)
+    assert after["frames_evaluated"] == first["frames_evaluated"] - 1
+    assert ev.timers.count["eval_gt_store_rows"] == 0
+    fresh = ClipPipeline(configs={"frame_cache_dir": str(tmp_path / "s2")},
+                         scene=scene, chunk=3, device="cpu")
+    assert tm.MapEvaluator().evaluate_scene(fresh) == after
 
 
 def test_clip_pixels_matches_on_finite_values():

@@ -382,6 +382,74 @@ def test_frame_cache_closes_each_fd_once(tmp_path, monkeypatch):
     assert sorted(closed) == sorted(fds + fds2)
 
 
+def _filled_gt_store(tmp_path):
+    """The port's GT-store configuration (uint16, no channel axis), 6 frames
+    of 3 cameras at 5 x 7: frames 1-4 every camera, frame 5 cameras 0 and
+    2 (camera 1 a miss), frame 0 nothing.  Returns (store, {(f, c): ids})."""
+    store = tframe_cache.FrameCache(tmp_path / "gt", 6, 3, (5, 7), key="g",
+                                    name="gt_ids", dtype=np.uint16,
+                                    channels=0, async_writes=False)
+    rng = np.random.default_rng(5)
+    put = {}
+    for f in range(1, 6):
+        for c in range(3):
+            if (f, c) == (5, 1):
+                continue
+            put[f, c] = rng.integers(0, 65536, (5, 7)).astype(np.uint16)
+            store.put(f, c, put[f, c])
+    return store, put
+
+
+@pytest.mark.parametrize("frame0,n", [(1, 4), (2, 1), (3, 2), (1, 0)])
+def test_read_into_equals_get_views(tmp_path, frame0, n):
+    """FrameCache.read_into fills a run of complete frames with the bytes
+    of a stack of get views, in one copy."""
+    store, _put = _filled_gt_store(tmp_path)
+    out = np.full((n, 3, 5, 7), 0xABCD, np.uint16)
+    assert all(store.complete(f) for f in range(frame0, frame0 + n))
+    store.read_into(frame0, out)
+    want = np.array([[store.get(f, c) for c in range(3)]
+                     for f in range(frame0, frame0 + n)],
+                    np.uint16).reshape(out.shape)
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("frame", range(6))
+def test_complete_is_every_camera_a_hit(tmp_path, frame):
+    """complete(frame) holds exactly when every camera's slot of the frame
+    is a hit, as the port's get and the JAX package's reader of the same
+    store see it: frame 0 holds nothing, frame 5 misses camera 1."""
+    store, _put = _filled_gt_store(tmp_path)
+    store.flush()
+    reader = jframe_cache.FrameCache(tmp_path / "gt", 6, 3, (5, 7), key="g",
+                                     name="gt_ids", dtype=np.uint16,
+                                     channels=0, async_writes=False)
+    hits = [store.get(frame, c) is not None for c in range(3)]
+    assert hits == [reader.get(frame, c) is not None for c in range(3)]
+    assert store.complete(frame) == all(hits) == (1 <= frame <= 4)
+
+
+def test_read_into_sees_another_instances_writes(tmp_path):
+    """read_into copies from its memmap: slots that a second instance of
+    the store writes through its pwrite lane after the first mapped the
+    files complete in the first and read back byte for byte."""
+    store, put = _filled_gt_store(tmp_path)
+    other = tframe_cache.FrameCache(tmp_path / "gt", 6, 3, (5, 7), key="g",
+                                    name="gt_ids", dtype=np.uint16,
+                                    channels=0, async_writes=False)
+    ids = np.arange(35, dtype=np.uint16).reshape(5, 7) + 60000
+    assert not store.complete(0)
+    for c in range(3):
+        other.put(0, c, ids + c)
+    assert other._data_fd is not None, "the pwrite lane should have engaged"
+    assert store.complete(0)
+    out = np.zeros((2, 3, 5, 7), np.uint16)
+    store.read_into(0, out)
+    for c in range(3):
+        np.testing.assert_array_equal(out[0, c], ids + c)
+        np.testing.assert_array_equal(out[1, c], put[1, c])
+
+
 def test_build_dir_falls_back_to_user_cache(tmp_path, monkeypatch):
     """Where build/ beside the package cannot be created (an installed,
     read-only copy), the kernels' library and the compositor go to the
