@@ -22,6 +22,14 @@ trajectory against wigo at matched timestamps.  A Site then:
 Every device step runs on `Site.device` ('cuda' unless asked otherwise) at
 every size: the JAX package's host switches below 4,096 pairs dodge the
 TPU's compile wall, which PyTorch does not have.
+
+`Site.timers` (a profiling.PhaseTimers) times the phases `site_align` (each
+member's Umeyama and instance transform), `site_refine` (the refinement,
+from its candidate pairs to its final loss on the host) and `site_dedupe`
+(the dedupe's candidate pairs, chamfer distances and keep scan), and counts
+`site_instances`, `site_refine_pairs`, `site_refine_steps`,
+`site_dedupe_pairs` and `site_removed`; `Site.refine_losses` holds the
+refinement's objective at the start of each of its Adam steps.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from cama_tpu_torch import profiling
 from cama_tpu_torch.aggregate.lidar import (
     aggregate_lidar,
     full_f32_matmul,
@@ -260,6 +269,9 @@ class Site:
         # clip indices whose Umeyama alignment had a free roll DOF (near-
         # collinear trajectory) and have NOT been settled by refinement yet
         self.degenerate_clips = set()
+        self.timers = profiling.PhaseTimers()
+        # the objective at the start of each Adam step of the last refinement
+        self.refine_losses = np.zeros(0)
 
     @classmethod
     def from_clips(cls, clip_paths, configs=None, dedupe_tol=0.5, name="site",
@@ -298,15 +310,18 @@ class Site:
         return site
 
     def add_clip(self, clip_path, scene):
-        info = {}
-        r, t, s = estimate_sim3_to_world(scene, info=info)
-        ci = len(self.clips)
-        if info.get("degenerate"):
-            self.degenerate_clips.add(ci)
-        self.clips.append((str(clip_path), scene, (r, t, s)))
-        for inst in lift.unflatten_to_instances(scene.flat["cama"]):
-            world_pts = apply_sim3_points(inst["points"], r, t, s)
-            self.instances.append((inst["class"], world_pts, ci))
+        with self.timers.phase("site_align"):
+            info = {}
+            r, t, s = estimate_sim3_to_world(scene, info=info)
+            ci = len(self.clips)
+            if info.get("degenerate"):
+                self.degenerate_clips.add(ci)
+            self.clips.append((str(clip_path), scene, (r, t, s)))
+            instances = lift.unflatten_to_instances(scene.flat["cama"])
+            for inst in instances:
+                world_pts = apply_sim3_points(inst["points"], r, t, s)
+                self.instances.append((inst["class"], world_pts, ci))
+        self.timers.add("site_instances", 0.0, len(instances))
 
     def warn_unsettled(self):
         """Warn for member clips whose free-roll (near-collinear) alignment
@@ -338,18 +353,21 @@ class Site:
         I = len(self.instances)
         if I < 2:
             return 0
-        pts, w, ii, jj, _, _ = _candidate_pairs(self.instances, subsample, tol)
-        close = np.zeros((I, I), bool)
-        if len(ii):
-            dev = self.device
-            dvals = _chamfer_pairs(
-                torch.from_numpy(pts).to(dev), torch.from_numpy(w).to(dev),
-                torch.from_numpy(ii).to(dev), torch.from_numpy(jj).to(dev))
-            close[jj, ii] = dvals.cpu().numpy() < tol
+        with self.timers.phase("site_dedupe"):
+            pts, w, ii, jj, _, _ = _candidate_pairs(self.instances, subsample, tol)
+            close = np.zeros((I, I), bool)
+            if len(ii):
+                dev = self.device
+                dvals = _chamfer_pairs(
+                    torch.from_numpy(pts).to(dev), torch.from_numpy(w).to(dev),
+                    torch.from_numpy(ii).to(dev), torch.from_numpy(jj).to(dev))
+                close[jj, ii] = dvals.cpu().numpy() < tol
 
-        keep_mask = greedy_keep(close)
-        removed = int((~keep_mask).sum())
-        self.instances = [inst for inst, k in zip(self.instances, keep_mask) if k]
+            keep_mask = greedy_keep(close)
+            removed = int((~keep_mask).sum())
+            self.instances = [inst for inst, k in zip(self.instances, keep_mask) if k]
+        self.timers.add("site_dedupe_pairs", 0.0, len(ii))
+        self.timers.add("site_removed", 0.0, removed)
         return removed
 
     # ---------------- joint alignment refinement ----------------
@@ -376,19 +394,24 @@ class Site:
         n_clips = len(self.clips)
         if I < 2 or n_clips < 2:
             return 0.0, 0.0
-        pts, w, ii, jj, clip, world_center = _candidate_pairs(self.instances, subsample, tol)
-        if len(ii) == 0:
-            return 0.0, 0.0
-        # clips with cross-clip correspondences get their free-roll DOF
-        # settled by the chamfer objective (or confirmed already settled
-        # when refinement declines)
-        self.degenerate_clips -= ({int(c) for c in clip[ii]}
-                                  | {int(c) for c in clip[jj]})
-        dev = torch.device("cpu") if backend == "host" else self.device
-        deltas, before, after, center_np = _optimize_pair_deltas(
-            pts, w, ii, jj, clip, n_clips, iters, lr, device=dev)
-        return self._apply_refine_deltas(deltas, before, after, center_np,
-                                         world_center, n_clips)
+        with self.timers.phase("site_refine"):
+            pts, w, ii, jj, clip, world_center = _candidate_pairs(self.instances, subsample, tol)
+            self.timers.add("site_refine_pairs", 0.0, len(ii))
+            if len(ii) == 0:
+                return 0.0, 0.0
+            # clips with cross-clip correspondences get their free-roll DOF
+            # settled by the chamfer objective (or confirmed already settled
+            # when refinement declines)
+            self.degenerate_clips -= ({int(c) for c in clip[ii]}
+                                      | {int(c) for c in clip[jj]})
+            dev = torch.device("cpu") if backend == "host" else self.device
+            losses = []
+            deltas, before, after, center_np = _optimize_pair_deltas(
+                pts, w, ii, jj, clip, n_clips, iters, lr, device=dev, losses=losses)
+            self.refine_losses = np.asarray(losses, np.float64)
+            self.timers.add("site_refine_steps", 0.0, len(losses))
+            return self._apply_refine_deltas(deltas, before, after, center_np,
+                                             world_center, n_clips)
 
     def _apply_refine_deltas(self, deltas, before, after, center_np,
                              world_center, n_clips):
@@ -664,12 +687,13 @@ def _refine_step(params, opt, anchor, data):
 
 
 def _optimize_pair_deltas(pts, w, ii, jj, clip, n_clips, iters, lr,
-                          device="cuda"):
+                          device="cuda", losses=None):
     """The refinement core: Adam (torch.optim.Adam, the defaults of optax's
     adam) on the delta parameters, gradients by autograd, on `device`.
     ii, jj are the candidate pairs, not padded: the pad of the last block
     is a zero sum, not computed.  Nothing syncs with the host inside the
-    loop: the first step's loss stays on the device until the end.
+    loop: each step's loss stays on the device until the end, when all are
+    fetched at once (into the list `losses`, when given).
     Returns (deltas | None, chamfer_before, chamfer_after,
     local_centroid): deltas = (rot [n, 3], t [n, 3], log_s [n]) NumPy,
     None when refinement is declined (iters == 0, or it would have made
@@ -678,16 +702,15 @@ def _optimize_pair_deltas(pts, w, ii, jj, clip, n_clips, iters, lr,
     data, center = refine_data(pts, w, ii, jj, clip, device)
     center_np = np.asarray(center, np.float64)
     params, opt, anchor = refine_state(n_clips, lr, device)
-    before = None
-    for _ in range(iters):
-        loss = _refine_step(params, opt, anchor, data)
-        if before is None:
-            before = loss
+    steps = [_refine_step(params, opt, anchor, data) for _ in range(iters)]
     with torch.no_grad():  # the probe: the loss at the final parameters
         after = float(pair_loss(params, data))
-    if before is None:  # iters == 0: nothing optimized
+    if not steps:  # iters == 0: nothing optimized
         return None, after, after, center_np
-    before = float(before)
+    steps = torch.stack(steps).cpu().numpy()
+    if losses is not None:
+        losses.extend(steps.tolist())
+    before = float(steps[0])
     if after >= before:  # refinement must never make the site worse
         return None, before, before, center_np
     return (tuple(params[k].detach().cpu().numpy() for k in ("rot", "t", "log_s")),
